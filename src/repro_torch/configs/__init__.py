@@ -1,0 +1,37 @@
+"""Config registry for the port: the dense architectures (one module per
+arch, copied from the reference package).  The other families and the
+input-shape table come with their models."""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+from repro_torch.configs.base import ModelConfig
+
+_MODULES = {
+    "yi-9b": "repro_torch.configs.yi_9b",
+    "glm4-9b": "repro_torch.configs.glm4_9b",
+    "granite-34b": "repro_torch.configs.granite_34b",
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
+    cfg = importlib.import_module(_MODULES[arch]).CONFIG
+    cfg.validate()
+    return cfg
+
+
+def get_tiny_config(arch: str) -> ModelConfig:
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
+    cfg = importlib.import_module(_MODULES[arch]).tiny()
+    cfg.validate()
+    return cfg
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}

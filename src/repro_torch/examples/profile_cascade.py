@@ -1,0 +1,111 @@
+"""Where the time of one served cascade request goes, on the card.
+
+Builds the same full-width bf16 yi-9b cascade as ``chip_smoke.py`` (48
+layers, prefill + 8 decode steps, 4 prompts x 256 tokens, cache 1024,
+``use_kernels=True``), warms it up, then serves one request under
+``torch.profiler`` and prints: the host wall time of the request, the
+device time summed per kernel name (top rows), the device busy share of
+the request's wall time, and the number of kernel launches.
+
+    PYTHONPATH=src python -m repro_torch.examples.profile_cascade
+
+Needs one CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.table import Table
+from repro_torch.examples import decode_cascade as dc
+from repro_torch.models import build_model
+
+STEPS = 8     # decode steps per request, as in chip_smoke.py
+TOP = 12      # kernel names printed
+
+
+def _merged_busy_us(intervals):
+    """Union length of [start, end) device intervals (us)."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--trace", default="",
+                    help="also write a Chrome trace to this path")
+    args = ap.parse_args(argv)
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("yi-9b"), use_kernels=True)
+    prompts, seq, cache_len = 4, 256, 1024
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (prompts, seq),
+                         dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    table = Table([("tokens", torch.Tensor)],
+                  [(toks[i],) for i in range(prompts)])
+    rt = dc.Runtime(n_cpu=1, n_gpu=1, net=dc.NetModel(scale=0.0),
+                    device=dev)
+    try:
+        pre, dec = dc.build_ops(model, params, cache_len=cache_len,
+                                name=cfg.name)
+        dep = dc.build(rt, pre, dec, steps=STEPS, name="profile")
+        for _ in range(2):                      # warm-up
+            dep.execute(table).result(600)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            dep.execute(table).result(600)
+            wall_s = time.perf_counter() - t0
+    finally:
+        rt.stop()
+
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    per_name = {}
+    for e in events:
+        d = per_name.setdefault(e.name, [0.0, 0])
+        d[0] += e.device_time
+        d[1] += 1
+    dev_us = sum(v[0] for v in per_name.values())
+    busy_us = _merged_busy_us(
+        [(e.time_range.start, e.time_range.end) for e in events])
+    rows = sorted(per_name.items(), key=lambda kv: -kv[1][0])
+    print(f"device: {torch.cuda.get_device_name(0)}")
+    print(f"request wall {wall_s * 1e3} ms; device kernel time "
+          f"{dev_us / 1e3} ms (summed), busy {busy_us / 1e3} ms "
+          f"(union) = {busy_us / 1e3 / (wall_s * 1e3)} of wall; "
+          f"{len(events)} device events")
+    for name, (us, n) in rows[:TOP]:
+        print(f"  {us / 1e3:10.3f} ms  {us / max(dev_us, 1e-9):6.1%}  "
+              f"x{n:<6d} {name[:90]}")
+    print(json.dumps({"wall_ms": wall_s * 1e3, "device_ms": dev_us / 1e3,
+                      "busy_ms": busy_us / 1e3,
+                      "busy_share": busy_us / 1e3 / (wall_s * 1e3),
+                      "device_events": len(events),
+                      "top": [{"name": n, "ms": v[0] / 1e3, "count": v[1]}
+                              for n, v in rows[:TOP]]}))
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+
+if __name__ == "__main__":
+    main()

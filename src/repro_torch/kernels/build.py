@@ -1,0 +1,158 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, loaded with ``ctypes``.  Builds
+happen at first use (never at import), into ``build/kernels/`` at the
+root of the checkout, under a file name that carries a hash of the
+sources so an edited kernel is rebuilt.  All sources are compiled at once,
+one ``nvcc`` process each.
+
+A failed build, a missing ``nvcc`` and a refused launch all raise
+:class:`KernelError`: the port never falls back to a plain version for a
+tensor that lies on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List, Optional
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+KERNEL_SOURCES = ("decode_attention", "flash_attention")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_c_ptr = ctypes.c_void_p
+_c_int = ctypes.c_int
+_c_float = ctypes.c_float
+_c_i64p = ctypes.POINTER(ctypes.c_longlong)
+
+#: the C entry point of each kernel library: (function, argtypes)
+SIGNATURES = {
+    "decode_attention": (
+        "decode_attention_launch",
+        [_c_ptr] * 6 + [_c_int] * 6 + [_c_i64p, _c_float, _c_float,
+                                       _c_int, _c_int, _c_int, _c_ptr]),
+    "flash_attention": (
+        "flash_attention_launch",
+        [_c_ptr] * 4 + [_c_int] * 5 + [_c_i64p, _c_float, _c_float,
+                                       _c_int, _c_int, _c_int, _c_int,
+                                       _c_ptr]),
+}
+
+
+class KernelError(RuntimeError):
+    """A CUDA kernel could not be built, refused its inputs, or failed to
+    launch.  Lowered chains never latch a fallback on it."""
+
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise KernelError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
+
+
+def _source_hash(name: str) -> str:
+    h = hashlib.sha256()
+    for p in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_source_hash(name)}.so"
+
+
+def build(names: Optional[Iterable[str]] = None, *,
+          verbose: bool = False) -> Dict[str, float]:
+    """Compile every named kernel whose library is missing, all ``nvcc``
+    processes at once.  Returns build seconds per kernel (0.0 when it was
+    already built).  ``verbose`` adds ``-Xptxas -v`` and prints the
+    compiler's report (registers, shared memory, spills)."""
+    names = list(names or KERNEL_SOURCES)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    procs: List = []
+    seconds = {name: 0.0 for name in names}
+    t0 = time.perf_counter()
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        nvcc = nvcc or nvcc_path()
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if verbose and log:
+            print(f"[nvcc {name}]\n{log}", flush=True)
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise KernelError("kernel build failed:\n" + "\n".join(failed))
+    return seconds
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, building every kernel first
+    when this one is not built yet."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            if not library_path(name).exists():
+                build()
+            try:
+                lib = ctypes.CDLL(str(library_path(name)))
+            except OSError as e:
+                raise KernelError(f"cannot load {name}: {e}") from e
+            fn_name, argtypes = SIGNATURES[name]
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            err = getattr(lib, f"{name}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+    return lib
+
+
+def check_launch(name: str, code: int) -> None:
+    """Raise :class:`KernelError` when a launch returned a CUDA error."""
+    if code != 0:
+        msg = getattr(library(name), f"{name}_error_string")(code)
+        raise KernelError(f"{name} launch failed: CUDA error {code} "
+                          f"({(msg or b'').decode()})")
+
+
+def strides_arg(values: List[int]):
+    """A C ``long long[]`` of element strides for a launch."""
+    return (ctypes.c_longlong * len(values))(*[int(v) for v in values])

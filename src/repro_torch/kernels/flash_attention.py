@@ -1,0 +1,100 @@
+"""Flash attention (the prefill): causal / windowed / softcapped GQA
+attention with an online softmax over kv tiles.
+
+Port of ``src/repro/kernels/flash_attention.py`` (the TPU kernel
+``_flash_kernel``).  ``flash_attention`` dispatches on the tensors'
+device: on the CPU it runs :func:`flash_attention_plain`; on the card it
+launches the hand-written CUDA kernel ``csrc/flash_attention.cu`` or
+raises :class:`~repro_torch.kernels.build.KernelError`.
+
+The least time of the work on an H100 is the larger of its operations
+(about 2 * B * H * S^2 * hd for the causal products, over 989 TFLOP/s)
+and its bytes (q, k, v and out once, over 3.35 TB/s).  The kernel
+accepts any S (the ragged edge is masked in the kernel) and reads q, k
+and v through their strides.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+#: The plain PyTorch version: the naive oracle of :mod:`.ref` (f32 math,
+#: masked logits at -1e30, GQA via ``h // G``).  CPU tensors run it; the
+#: kernel is held to it.
+flash_attention_plain = ref.attention_ref
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _aligned(t: torch.Tensor, vec: int) -> bool:
+    return (t.data_ptr() % 16 == 0
+            and all(s % vec == 0 for s in t.stride()[:-1]))
+
+
+def check_inputs(q, k, v) -> None:
+    """What the CUDA kernel takes; raises KernelError on anything else."""
+    err = build.KernelError
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise err(f"flash_attention: bad ranks/shapes q{tuple(q.shape)} "
+                  f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    B, H, S, hd = q.shape
+    Bk, K, Sk, hdk = k.shape
+    if (Bk, Sk, hdk) != (B, S, hd) or H % K:
+        raise err(f"flash_attention: q{tuple(q.shape)} does not match "
+                  f"k{tuple(k.shape)}")
+    if hd % 8 or hd > 256:
+        raise err(f"flash_attention: head_dim {hd} must be a multiple of "
+                  "8 up to 256")
+    if B * H > 65535:
+        raise err(f"flash_attention: B*H={B * H} exceeds the grid's y "
+                  "limit of 65535")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise err(f"flash_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype};"
+                  " needs float32 or bfloat16 throughout")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise err("flash_attention: head_dim must be the contiguous dim")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, scale: Optional[float] = None):
+    """q: [B, H, S, hd]; k, v: [B, K, S, hd] with H = K * G (any strides
+    with a contiguous last dim).  Returns [B, H, S, hd] in q's dtype.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (counted in ``flash_attention.launches``) or raise KernelError."""
+    devices = {t.device for t in (q, k, v)}
+    if devices == {torch.device("cpu")}:
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, scale=scale)
+    if len(devices) != 1 or q.device.type != "cuda":
+        raise build.KernelError(
+            f"flash_attention: inputs on {sorted(map(str, devices))}; "
+            "needs all on one CUDA device (or all on the CPU)")
+    check_inputs(q, k, v)
+    B, H, S, hd = q.shape
+    K = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    vec = 16 // q.element_size()
+    aligned = int(all(_aligned(t, vec) for t in (q, k, v)))
+    out = torch.empty((B, H, S, hd), dtype=q.dtype, device=q.device)
+    strides = build.strides_arg([*q.stride()[:3], *k.stride()[:3],
+                                 *v.stride()[:3]])
+    lib = build.library("flash_attention")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, K, S, hd, strides, float(scale), float(softcap),
+            int(bool(causal)), int(window), _DTYPE_CODE[q.dtype], aligned,
+            stream)
+    build.check_launch("flash_attention", code)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,206 @@
+"""Shared layers of the dense transformer (port of the reference package's
+``models/layers.py``, the subset the dense path needs).
+
+Plain functions over tensors, numerically the reference's: rmsnorm in the
+``(1 + scale)`` form with zero-initialised scale, half-split (not
+interleaved) RoPE, KV-chunked online-softmax attention with masked logits
+at -1e30, and single-token decode attention over a ring cache.  The CUDA
+kernels in :mod:`repro_torch.kernels` replace the two attention functions
+when ``use_kernels`` is set.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def rmsnorm(x, scale, eps: float = 1e-6):
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.float())).to(dtype)
+
+
+def apply_norm(x, params, kind: str):
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    return rmsnorm(x, params["scale"])
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_frequencies(head_dim: int, theta: float, device=None):
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)  # [hd/2]
+
+
+def apply_rope(x, positions, theta: float):
+    """x: [..., S, n_heads, head_dim]; positions: [S] or [B, S] int32.
+    Half-split rotation: the first half of head_dim pairs with the
+    second."""
+    if theta <= 0.0:
+        return x
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, device=x.device)
+    angles = positions.float()[..., None] * freqs        # [(B,)S,hd/2]
+    angles = angles.unsqueeze(-2)                        # [(B,)S,1,hd/2]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (chunked online-softmax; GQA; sliding window; logit softcap)
+# ---------------------------------------------------------------------------
+NEG_INF = -1e30
+
+
+def _softcap(logits, cap: float):
+    if cap and cap > 0.0:
+        return cap * torch.tanh(logits / cap)
+    return logits
+
+
+def _mask_logits(logits, q_pos, k_pos, *, causal: bool, window: int):
+    """logits: [..., Q, Kc]; q_pos: [..., Q]; k_pos: [..., Kc] (-1 = invalid)."""
+    valid = (k_pos >= 0)[..., None, :]
+    if causal:
+        valid = valid & (k_pos[..., None, :] <= q_pos[..., :, None])
+    if window and window > 0:
+        valid = valid & (q_pos[..., :, None] - k_pos[..., None, :] < window)
+    return torch.where(valid, logits, torch.full_like(logits, NEG_INF))
+
+
+def chunked_attention(q, k, v, *, q_positions, k_positions,
+                      causal: bool = True, window: int = 0,
+                      softcap: float = 0.0, chunk_q: int = 1024,
+                      chunk_k: int = 1024, scale: Optional[float] = None):
+    """Flash-style attention without O(Sq*Sk) live memory.
+
+    q: [B, Sq, H, hd];  k, v: [B, Sk, K, hd] with H = K*G (GQA).
+    q_positions: [Sq] or [B, Sq]; k_positions: [Sk] or [B, Sk] (-1 invalid).
+    Returns [B, Sq, H, hd].
+    """
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    cq = min(chunk_q, Sq)
+    ck = min(chunk_k, Sk)
+    if Sq % cq or Sk % ck:
+        raise ValueError(f"chunks must divide: Sq={Sq} cq={cq} Sk={Sk} "
+                         f"ck={ck}")
+    if q_positions.dim() == 1:
+        q_positions = q_positions[None].expand(B, Sq)
+    if k_positions.dim() == 1:
+        k_positions = k_positions[None].expand(B, Sk)
+
+    outs = []
+    for q0 in range(0, Sq, cq):
+        # [B, K, G, cq, hd]
+        q_blk = q[:, q0:q0 + cq].reshape(B, cq, K, G, hd).permute(
+            0, 2, 3, 1, 4).float()
+        qpos = q_positions[:, q0:q0 + cq]
+        m = torch.full((B, K, G, cq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, K, G, cq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, K, G, cq, hd), dtype=torch.float32,
+                          device=q.device)
+        for k0 in range(0, Sk, ck):
+            k_blk = k[:, k0:k0 + ck].permute(0, 2, 1, 3).float()
+            v_blk = v[:, k0:k0 + ck].permute(0, 2, 1, 3).float()
+            kpos = k_positions[:, k0:k0 + ck]
+            logits = torch.einsum("bkgqd,bkcd->bkgqc", q_blk, k_blk) * scale
+            logits = _softcap(logits, softcap)
+            logits = _mask_logits(
+                logits, qpos[:, None, None, :], kpos[:, None, None, :],
+                causal=causal, window=window)
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            p = torch.exp(logits - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqc,bkcd->bkgqd", p, v_blk)
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]
+        outs.append(out.to(q.dtype))                 # [B,K,G,cq,hd]
+    out = torch.cat(outs, dim=3)                     # [B,K,G,Sq,hd]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+
+
+def decode_attention(q, k_cache, v_cache, *, q_position, k_positions,
+                     window: int = 0, softcap: float = 0.0,
+                     scale: Optional[float] = None):
+    """Single-token attention against a (possibly ring-buffer) KV cache.
+
+    q: [B, 1, H, hd]; k_cache/v_cache: [B, S, K, hd];
+    q_position: [B] int32; k_positions: [B, S] int32 (-1 = empty slot).
+    """
+    B, _, H, hd = q.shape
+    K = k_cache.shape[2]
+    G = H // K
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qh = q.reshape(B, K, G, hd)
+    logits = torch.einsum("bkgd,bskd->bkgs", qh.float(),
+                          k_cache.float()) * scale
+    logits = _softcap(logits, softcap)
+    valid = (k_positions >= 0) & (k_positions <= q_position[:, None])
+    if window and window > 0:
+        valid = valid & (q_position[:, None] - k_positions < window)
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.full_like(logits, NEG_INF))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+def _act(x, kind: str):
+    if kind == "silu":
+        return F.silu(x)
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp_apply(x, params, *, gated: bool, act: str):
+    if gated:
+        h = _act(x @ params["w_gate"], act) * (x @ params["w_up"])
+    else:
+        h = _act(x @ params["w_up"], act)
+    return h @ params["w_down"]
+
+
+def dense_init(shape, dtype, *, fan_in: int, generator: torch.Generator,
+               device):
+    """Normal(0, 1/sqrt(fan_in)) in float32, cast to ``dtype`` (the
+    reference's ``dense_init`` scale)."""
+    std = 1.0 / math.sqrt(fan_in)
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return (w.mul_(std)).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+def embed_lookup(table, tokens, *, scale_by_dim: bool = False):
+    out = table[tokens.long()]
+    if scale_by_dim:
+        out = out * math.sqrt(table.shape[-1])
+    return out
+
+
+def unembed(x, table, *, softcap: float = 0.0):
+    logits = torch.einsum("...d,vd->...v", x, table).float()
+    return _softcap(logits, softcap)

@@ -1,0 +1,191 @@
+"""The port's CUDA kernels on the card, held to their plain versions.
+
+Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
+one; run them on a machine with a card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: f32 inputs 1e-4 absolute (the kernel and the plain version
+sum in different orders); bf16 inputs compare rel max error < 0.05, the
+reference package's bar for bf16 kernel paths.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels.build import KernelError  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention_plain)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_plain)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rand(shape, dtype, dev, seed, scale=0.3):
+    a = np.random.default_rng(seed).standard_normal(shape) * scale
+    return torch.tensor(a, dtype=torch.float32, device=dev).to(dtype)
+
+
+def _close(got, want, dtype):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        rel = (got - want).abs().max() / want.abs().max().clamp_min(1e-6)
+        assert rel < 0.05, float(rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,S,hd,window,softcap,causal", [
+    (2, 8, 2, 128, 64, 0, 0.0, True),
+    (1, 4, 1, 100, 128, 0, 0.0, True),       # ragged S, MQA
+    (2, 4, 2, 96, 32, 16, 0.0, True),        # window
+    (1, 4, 4, 64, 64, 0, 30.0, True),        # softcap
+    (1, 2, 1, 70, 64, 0, 0.0, False),        # non-causal, ragged
+    (4, 32, 4, 256, 128, 0, 0.0, True),      # yi-9b prefill shape
+])
+def test_flash_kernel_matches_plain(dev, dtype, B, H, K, S, hd, window,
+                                    softcap, causal):
+    q = _rand((B, H, S, hd), dtype, dev, 0)
+    k = _rand((B, K, S, hd), dtype, dev, 1)
+    v = _rand((B, K, S, hd), dtype, dev, 2)
+    n0 = kops.flash_attention.launches
+    got = kops.flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap)
+    torch.cuda.synchronize()
+    assert kops.flash_attention.launches == n0 + 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_strided_views(dev, dtype):
+    B, S, H, K, hd = 2, 48, 8, 2, 64
+    q = _rand((B, S, H, hd), dtype, dev, 3).transpose(1, 2)
+    k = _rand((B, S, K, hd), dtype, dev, 4).transpose(1, 2)
+    v = _rand((B, S, K, hd), dtype, dev, 5).transpose(1, 2)
+    got = kops.flash_attention(q, k, v)
+    _close(got, flash_attention_plain(q, k, v), dtype)
+
+
+def _ring(B, S, filled, dev):
+    kpos = torch.full((B, S), -1, dtype=torch.int32)
+    for b, n in enumerate(filled):
+        kpos[b, :n] = torch.arange(n, dtype=torch.int32)
+    qpos = torch.tensor([max(n - 1, 0) for n in filled], dtype=torch.int32)
+    return kpos.to(dev), qpos.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,S,hd,window,softcap", [
+    (2, 4, 2, 128, 64, 0, 0.0),
+    (3, 8, 8, 100, 32, 0, 0.0),      # MHA, ragged S
+    (2, 4, 1, 256, 128, 8, 0.0),     # MQA + window
+    (1, 8, 2, 64, 256, 0, 50.0),     # hd 256 + softcap
+    (4, 32, 4, 1024, 128, 0, 0.0),   # yi-9b decode shape
+    (2, 48, 1, 1024, 128, 0, 0.0),   # granite-34b: G = 48, two passes
+    (2, 80, 2, 100, 64, 16, 0.0),    # G = 40, ragged S + window
+])
+def test_decode_kernel_matches_plain(dev, dtype, B, H, K, S, hd, window,
+                                     softcap):
+    q = _rand((B, H, hd), dtype, dev, 0)
+    # the model's native [B, W, K, hd] cache, handed over transposed
+    kc = _rand((B, S, K, hd), dtype, dev, 1).transpose(1, 2)
+    vc = _rand((B, S, K, hd), dtype, dev, 2).transpose(1, 2)
+    filled = [S - 7 * b for b in range(B)]
+    kpos, qpos = _ring(B, S, filled, dev)
+    n0 = kops.decode_attention.launches
+    got = kops.decode_attention(q, kc, vc, kpos, qpos, window=window,
+                                softcap=softcap)
+    torch.cuda.synchronize()
+    assert kops.decode_attention.launches == n0 + 1
+    want = decode_attention_plain(q, kc, vc, kpos, qpos, window=window,
+                                  softcap=softcap)
+    _close(got, want, dtype)
+
+
+def test_decode_kernel_empty_cache_is_mean_of_v(dev):
+    B, H, K, S, hd = 2, 4, 2, 64, 64
+    q = _rand((B, H, hd), torch.float32, dev, 0)
+    kc = _rand((B, K, S, hd), torch.float32, dev, 1)
+    vc = _rand((B, K, S, hd), torch.float32, dev, 2)
+    kpos = torch.full((B, S), -1, dtype=torch.int32, device=dev)
+    qpos = torch.zeros((B,), dtype=torch.int32, device=dev)
+    got = kops.decode_attention(q, kc, vc, kpos, qpos)
+    want = vc.mean(dim=2).repeat_interleave(H // K, dim=1)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_kernels_refuse_what_they_do_not_take(dev):
+    q = _rand((1, 4, 16, 12), torch.float32, dev, 0)     # hd 12
+    with pytest.raises(KernelError):
+        kops.flash_attention(q, q, q)
+    with pytest.raises(KernelError):                      # fp16
+        kops.flash_attention(*(_rand((1, 2, 16, 64), torch.float16, dev, i)
+                               for i in range(3)))
+    qd = _rand((1, 4, 48), torch.float32, dev, 0)         # hd 48
+    kc = _rand((1, 2, 16, 48), torch.float32, dev, 1)
+    kpos, qpos = _ring(1, 16, [16], dev)
+    with pytest.raises(KernelError):
+        kops.decode_attention(qd, kc, kc, kpos, qpos)
+    with pytest.raises(KernelError):                      # mixed devices
+        kops.decode_attention(qd, kc.cpu(), kc, kpos, qpos)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiny_cascade_on_card_uses_kernels(dev, dtype):
+    """The compiled cascade with kernels on the card: the chain launches
+    the kernels, and its greedy tokens equal the plain model loop's (f32:
+    exactly; bf16: the first-step logits agree within rel 0.05)."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.examples import decode_cascade as dc
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_tiny_config("yi-9b"), dtype=dtype,
+                              use_kernels=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    plain = build_model(dataclasses.replace(cfg, use_kernels=False))
+    toks = torch.randint(0, cfg.vocab_size, (3, dc.SEQ), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    lg_k, cache_k = model.prefill(params, {"tokens": toks.to(dev)},
+                                  dc.CACHE)
+    lg_p, _ = plain.prefill(params, {"tokens": toks.to(dev)}, dc.CACHE)
+    rel = (lg_k - lg_p).abs().max() / lg_p.abs().max()
+    assert rel < (1e-5 if dtype == "float32" else 0.05)
+    if dtype != "float32":
+        return
+    rt = dc.Runtime(n_cpu=1, n_gpu=1, net=dc.NetModel(scale=0.0))
+    try:
+        pre, dec = dc.build_ops(model, params)
+        dep = dc.build(rt, pre, dec)
+        table = dc.Table([("tokens", torch.Tensor)],
+                         [(toks[i],) for i in range(3)])
+        f0 = kops.flash_attention.launches
+        d0 = kops.decode_attention.launches
+        out = dep.execute(table).result(300)
+        chain = dep.plan.ops[-1].op
+        runs = chain.batch_dispatches + chain.row_dispatches
+        assert kops.flash_attention.launches - f0 == cfg.num_layers * runs
+        assert kops.decode_attention.launches - d0 == \
+            cfg.num_layers * dc.STEPS * runs
+        got = [int(r.values[0]) for r in out.rows]
+        assert got == dc.reference_decode(plain, params, toks.to(dev))
+    finally:
+        rt.stop()
