@@ -1,6 +1,7 @@
-"""Config registry for the port: the dense architectures (one module per
-arch, copied from the reference package).  The other families and the
-input-shape table come with their models."""
+"""Config registry for the port: one module per ported architecture,
+copied from the reference package (the dense archs, rwkv6 and
+recurrentgemma).  The other families and the input-shape table come with
+their models."""
 from __future__ import annotations
 
 import importlib
@@ -12,6 +13,8 @@ _MODULES = {
     "yi-9b": "repro_torch.configs.yi_9b",
     "glm4-9b": "repro_torch.configs.glm4_9b",
     "granite-34b": "repro_torch.configs.granite_34b",
+    "rwkv6-1.6b": "repro_torch.configs.rwkv6_1b6",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
 
 ARCH_IDS = tuple(_MODULES)

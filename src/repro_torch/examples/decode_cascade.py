@@ -10,16 +10,21 @@ between steps, and a batch of prompts runs each fused step as one
 batched call of the model (one kernel launch per attention site and
 layer with ``use_kernels``).
 
-  PYTHONPATH=src python -m repro_torch.examples.decode_cascade
+  PYTHONPATH=src python -m repro_torch.examples.decode_cascade \
+      [--arch yi-9b | rwkv6-1.6b | recurrentgemma-2b | ...]
+
+The model is the arch's tiny config at f32; rwkv6 and recurrentgemma run
+their recurrences through the ``wkv6`` and ``rglru_scan`` kernels.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import time
 
 import torch
 
-from repro_torch.configs import get_tiny_config
+from repro_torch.configs import ARCH_IDS, get_tiny_config
 from repro_torch.core.compiler import compile_flow
 from repro_torch.core.dataflow import Dataflow
 from repro_torch.core.table import Table
@@ -73,17 +78,18 @@ def reference_decode(model, params, toks, *, steps=STEPS, cache_len=CACHE):
     return [int(x) for x in tok]
 
 
-def run(prompts: int = 3, *, steps: int = STEPS, verbose: bool = False):
+def run(prompts: int = 3, *, arch: str = ARCH, steps: int = STEPS,
+        verbose: bool = False):
     """Headless run on the card with the kernels on; returns a metrics
     dict."""
     dev = resolve_device(None)
-    cfg = dataclasses.replace(get_tiny_config(ARCH), dtype="float32",
+    cfg = dataclasses.replace(get_tiny_config(arch), dtype="float32",
                               use_kernels=True)
     model = build_model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     rt = Runtime(n_cpu=2, n_gpu=1, net=NetModel(scale=0.0), device=dev)
     try:
-        pre, dec = build_ops(model, params)
+        pre, dec = build_ops(model, params, name=arch)
         dep = build(rt, pre, dec, steps=steps)
         toks = torch.randint(0, cfg.vocab_size, (prompts, SEQ),
                              generator=torch.Generator().manual_seed(1),
@@ -111,7 +117,9 @@ def run(prompts: int = 3, *, steps: int = STEPS, verbose: bool = False):
 
 
 def main():
-    r = run(verbose=True)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default=ARCH, choices=ARCH_IDS)
+    r = run(arch=ap.parse_args().arch, verbose=True)
     print("PARITY OK" if r["tokens_match"] else "PARITY FAILED")
 
 

@@ -1,13 +1,15 @@
 """Where the time of one served cascade request goes, on the card.
 
-Builds the same full-width bf16 yi-9b cascade as ``chip_smoke.py`` (48
-layers, prefill + 8 decode steps, 4 prompts x 256 tokens, cache 1024,
-``use_kernels=True``), warms it up, then serves one request under
+Builds the same full-width bf16 cascade as ``chip_smoke.py`` for one arch
+(yi-9b unless ``--arch`` names another; full depth, prefill + 8 decode
+steps, 4 prompts x 256 tokens, cache 1024, ``use_kernels=True``), warms
+it up, then serves one request under
 ``torch.profiler`` and prints: the host wall time of the request, the
 device time summed per kernel name (top rows), the device busy share of
 the request's wall time, and the number of kernel launches.
 
-    PYTHONPATH=src python -m repro_torch.examples.profile_cascade
+    PYTHONPATH=src python -m repro_torch.examples.profile_cascade \
+        [--arch yi-9b | rwkv6-1.6b | recurrentgemma-2b]
 
 Needs one CUDA device.
 """
@@ -20,7 +22,7 @@ import time
 
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.table import Table
 from repro_torch.examples import decode_cascade as dc
 from repro_torch.models import build_model
@@ -46,12 +48,13 @@ def _merged_busy_us(intervals):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="yi-9b", choices=ARCH_IDS)
     ap.add_argument("--trace", default="",
                     help="also write a Chrome trace to this path")
     args = ap.parse_args(argv)
 
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(get_config("yi-9b"), use_kernels=True)
+    cfg = dataclasses.replace(get_config(args.arch), use_kernels=True)
     prompts, seq, cache_len = 4, 256, 1024
     model = build_model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
@@ -89,7 +92,7 @@ def main(argv=None):
     busy_us = _merged_busy_us(
         [(e.time_range.start, e.time_range.end) for e in events])
     rows = sorted(per_name.items(), key=lambda kv: -kv[1][0])
-    print(f"device: {torch.cuda.get_device_name(0)}")
+    print(f"device: {torch.cuda.get_device_name(0)}; {cfg.name}")
     print(f"request wall {wall_s * 1e3} ms; device kernel time "
           f"{dev_us / 1e3} ms (summed), busy {busy_us / 1e3} ms "
           f"(union) = {busy_us / 1e3 / (wall_s * 1e3)} of wall; "

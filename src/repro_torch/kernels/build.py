@@ -23,11 +23,17 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNEL_SOURCES = ("decode_attention", "flash_attention")
+KERNEL_SOURCES = ("decode_attention", "flash_attention", "wkv6",
+                  "rglru_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+#: the kernels' ``dtype`` argument: the element type of their inputs
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -45,6 +51,12 @@ SIGNATURES = {
         [_c_ptr] * 4 + [_c_int] * 5 + [_c_i64p, _c_float, _c_float,
                                        _c_int, _c_int, _c_int, _c_int,
                                        _c_ptr]),
+    "wkv6": (
+        "wkv6_launch",
+        [_c_ptr] * 7 + [_c_int] * 5 + [_c_ptr]),
+    "rglru_scan": (
+        "rglru_scan_launch",
+        [_c_ptr] * 4 + [_c_int] * 4 + [_c_ptr]),
 }
 
 
@@ -145,12 +157,36 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check_launch(name: str, code: int) -> None:
-    """Raise :class:`KernelError` when a launch returned a CUDA error."""
+def card_of(name: str, tensors) -> Optional[torch.device]:
+    """The CUDA device all ``tensors`` lie on, or None when they all lie on
+    the CPU (the caller then runs its plain version).  Any other mix
+    raises :class:`KernelError`."""
+    devices = {t.device for t in tensors}
+    if devices == {torch.device("cpu")}:
+        return None
+    device = next(iter(devices))
+    if len(devices) != 1 or device.type != "cuda":
+        raise KernelError(
+            f"{name}: inputs on {sorted(map(str, devices))}; needs all on "
+            "one CUDA device (or all on the CPU)")
+    return device
+
+
+def launch(wrapper, device: torch.device, *args) -> None:
+    """Launch the kernel named as ``wrapper`` on ``device``'s current
+    stream with the C arguments ``args`` (the stream goes last), raise
+    :class:`KernelError` when CUDA refuses it, and count the launch in
+    ``wrapper.launches``."""
+    name = wrapper.__name__
+    lib = library(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = getattr(lib, SIGNATURES[name][0])(*args, stream)
     if code != 0:
-        msg = getattr(library(name), f"{name}_error_string")(code)
+        msg = getattr(lib, f"{name}_error_string")(code)
         raise KernelError(f"{name} launch failed: CUDA error {code} "
                           f"({(msg or b'').decode()})")
+    wrapper.launches += 1
 
 
 def strides_arg(values: List[int]):

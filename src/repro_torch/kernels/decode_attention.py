@@ -25,9 +25,6 @@ from repro_torch.kernels import build, ref
 #: V).  CPU tensors run it; the kernel is held to it.
 decode_attention_plain = ref.decode_attention_ref
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
 def _tile_rows(hd: int) -> int:
     """Cache slots staged per tile: K and V tiles in f32 plus positions
     stay under 40 KB of shared memory (no opt-in above 48 KB needed)."""
@@ -54,7 +51,7 @@ def check_inputs(q, k_cache, v_cache, k_positions, q_position) -> None:
     if hd % 32 or hd > 256:
         raise err(f"decode_attention: needs head_dim a multiple of 32 up "
                   f"to 256 (hd={hd})")
-    if q.dtype not in _DTYPE_CODE or k_cache.dtype != q.dtype \
+    if q.dtype not in build.DTYPE_CODE or k_cache.dtype != q.dtype \
             or v_cache.dtype != q.dtype:
         raise err(f"decode_attention: dtypes {q.dtype}/{k_cache.dtype}/"
                   f"{v_cache.dtype}; needs float32 or bfloat16 throughout")
@@ -77,36 +74,26 @@ def decode_attention(q, k_cache, v_cache, k_positions, q_position, *,
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (counted in ``decode_attention.launches``) or raise KernelError."""
     args = (q, k_cache, v_cache, k_positions, q_position)
-    devices = {t.device for t in args}
-    if devices == {torch.device("cpu")}:
+    dev = build.card_of("decode_attention", args)
+    if dev is None:
         return decode_attention_plain(*args, window=window, softcap=softcap,
                                       scale=scale)
-    if len(devices) != 1 or q.device.type != "cuda":
-        raise build.KernelError(
-            f"decode_attention: inputs on {sorted(map(str, devices))}; "
-            "needs all on one CUDA device (or all on the CPU)")
     check_inputs(*args)
     B, H, hd = q.shape
     K, S = k_cache.shape[1], k_cache.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     vec = 16 // q.element_size()
     aligned = int(_aligned(k_cache, vec) and _aligned(v_cache, vec))
-    out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, H, hd), dtype=q.dtype, device=dev)
     strides = build.strides_arg([
         q.stride(0), q.stride(1),
         *k_cache.stride()[:3], *v_cache.stride()[:3],
         k_positions.stride(0), k_positions.stride(1), q_position.stride(0)])
-    lib = build.library("decode_attention")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.decode_attention_launch(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            k_positions.data_ptr(), q_position.data_ptr(), out.data_ptr(),
-            B, H, K, S, hd, _tile_rows(hd), strides, float(scale),
-            float(softcap), int(window), _DTYPE_CODE[q.dtype], aligned,
-            stream)
-    build.check_launch("decode_attention", code)
-    decode_attention.launches += 1
+    build.launch(decode_attention, dev, q.data_ptr(), k_cache.data_ptr(),
+                 v_cache.data_ptr(), k_positions.data_ptr(),
+                 q_position.data_ptr(), out.data_ptr(), B, H, K, S, hd,
+                 _tile_rows(hd), strides, float(scale), float(softcap),
+                 int(window), build.DTYPE_CODE[q.dtype], aligned)
     return out
 
 

@@ -27,9 +27,6 @@ from repro_torch.kernels import build, ref
 #: kernel is held to it.
 flash_attention_plain = ref.attention_ref
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
 def _aligned(t: torch.Tensor, vec: int) -> bool:
     return (t.data_ptr() % 16 == 0
             and all(s % vec == 0 for s in t.stride()[:-1]))
@@ -52,7 +49,7 @@ def check_inputs(q, k, v) -> None:
     if B * H > 65535:
         raise err(f"flash_attention: B*H={B * H} exceeds the grid's y "
                   "limit of 65535")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+    if q.dtype not in build.DTYPE_CODE or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise err(f"flash_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype};"
                   " needs float32 or bfloat16 throughout")
@@ -67,33 +64,23 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (counted in ``flash_attention.launches``) or raise KernelError."""
-    devices = {t.device for t in (q, k, v)}
-    if devices == {torch.device("cpu")}:
+    dev = build.card_of("flash_attention", (q, k, v))
+    if dev is None:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale)
-    if len(devices) != 1 or q.device.type != "cuda":
-        raise build.KernelError(
-            f"flash_attention: inputs on {sorted(map(str, devices))}; "
-            "needs all on one CUDA device (or all on the CPU)")
     check_inputs(q, k, v)
     B, H, S, hd = q.shape
     K = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     vec = 16 // q.element_size()
     aligned = int(all(_aligned(t, vec) for t in (q, k, v)))
-    out = torch.empty((B, H, S, hd), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, H, S, hd), dtype=q.dtype, device=dev)
     strides = build.strides_arg([*q.stride()[:3], *k.stride()[:3],
                                  *v.stride()[:3]])
-    lib = build.library("flash_attention")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, K, S, hd, strides, float(scale), float(softcap),
-            int(bool(causal)), int(window), _DTYPE_CODE[q.dtype], aligned,
-            stream)
-    build.check_launch("flash_attention", code)
-    flash_attention.launches += 1
+    build.launch(flash_attention, dev, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), out.data_ptr(), B, H, K, S, hd, strides,
+                 float(scale), float(softcap), int(bool(causal)),
+                 int(window), build.DTYPE_CODE[q.dtype], aligned)
     return out
 
 

@@ -14,12 +14,14 @@ chains (``PlaceKernelsPass``):
   names, and which keyword params are *semantic* (they change the math;
   the oracle takes them too).  The CUDA kernels pick their own tiles and
   mask ragged edges, so no kernel has tile params.
-* ``kernel_step(name, **params)`` builds a dataflow ``Map`` step:
-  ``torch.Tensor``-annotated, computing via the *oracle* (so un-placed
-  plans and ``execute_local`` stay correct), tagged with a
-  :class:`KernelCall`.  Steps are memoized per ``(kernel, params)`` so
-  recompiles of the same flow share function identity —
-  ``chain_signature`` keys the executable cache on the function objects.
+* ``kernel_step(name, bound=None, **params)`` builds a dataflow ``Map``
+  step: ``torch.Tensor``-annotated, computing via the *oracle* (so
+  un-placed plans and ``execute_local`` stay correct), tagged with a
+  :class:`KernelCall`.  ``bound`` closes over trailing kernel arguments
+  as constants (``wkv6``'s per-model ``u``).  Steps are memoized per
+  ``(kernel, params, bound identities)`` so recompiles of the same flow
+  share function identity — ``chain_signature`` keys the executable
+  cache on the function objects.
 * Every step carries its kernel twin (``__kernel_placed__``): the same
   signature, computing via the wrapper.  Per row it adds ``B=1``; its
   ``__batched__`` attribute is the natively batched callable, which a
@@ -39,8 +41,11 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.build import KernelError
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.wkv6 import wkv6
 
-__all__ = ["KernelError", "flash_attention", "decode_attention",
+__all__ = ["KernelError", "flash_attention", "decode_attention", "wkv6",
+           "rglru_scan",
            "KernelCall", "KernelSpec", "KERNEL_REGISTRY", "kernel_step",
            "register_pattern", "match_kernel", "placed_fn", "placed_twin"]
 
@@ -99,9 +104,9 @@ class KernelSpec:
 
 
 #: per kernel: (constraint, operand columns, predicate over their shapes)
-#: — what the CUDA kernels really require.  Neither needs S to divide a
-#: tile: both mask the ragged edge.  Dims are indexed from the end so the
-#: rules hold for batched operands and row-level specs alike.
+#: — what the CUDA kernels really require.  None needs a length to divide
+#: a tile: the kernels mask the ragged edge.  Dims are indexed from the
+#: end so the rules hold for batched operands and row-level specs alike.
 _TILE_RULES: Dict[str, Tuple[Tuple[str, Tuple[str, ...], Callable], ...]] = {
     "flash_attention": (
         ("head_dim a multiple of 8 up to 256", ("q",),
@@ -114,6 +119,15 @@ _TILE_RULES: Dict[str, Tuple[Tuple[str, Tuple[str, ...], Callable], ...]] = {
          lambda q: q[-1] % 32 == 0 and q[-1] <= 256),
         ("q heads a multiple of kv heads", ("q", "k_cache"),
          lambda q, k: q[-2] % k[-3] == 0),
+    ),
+    "wkv6": (
+        ("head_dim up to 128 (a column of S per thread)", ("r",),
+         lambda r: r[-1] <= 128),
+        ("r, k, v, w of one shape", ("r", "k", "v", "w"),
+         lambda r, k, v, w: r == k == v == w),
+    ),
+    "rglru_scan": (
+        ("x shaped like a", ("a", "x"), lambda a, x: a == x),
     ),
 }
 
@@ -128,6 +142,12 @@ KERNEL_REGISTRY: Dict[str, KernelSpec] = {
         ref=ref.decode_attention_ref,
         args=("q", "k_cache", "v_cache", "k_positions", "q_position"),
         sem_params=("window", "softcap", "scale")),
+    "wkv6": KernelSpec(
+        name="wkv6", fn=wkv6, ref=ref.wkv6_ref,
+        args=("r", "k", "v", "w", "u")),
+    "rglru_scan": KernelSpec(
+        name="rglru_scan", fn=rglru_scan, ref=ref.rglru_scan_ref,
+        args=("a", "x")),
 }
 
 #: user fn object -> KernelCall, for code that can't carry the step tag
@@ -182,13 +202,15 @@ def _rowwise(batched: Callable) -> Callable:
     return per_row
 
 
-def _make_placed(spec: KernelSpec, call: KernelCall) -> Callable:
+def _make_placed(spec: KernelSpec, call: KernelCall,
+                 bound: Tuple[Any, ...] = ()) -> Callable:
     """The kernel twin of a step: per row it calls the wrapper with
-    ``B=1``; its ``__batched__`` takes the stacked rows in one launch."""
+    ``B=1``; its ``__batched__`` takes the stacked rows in one launch.
+    ``bound`` values follow the columns, unbatched."""
     kw = call.kwargs()
 
     def batched(*cols):
-        return spec.fn(*cols, **kw)
+        return spec.fn(*cols, *bound, **kw)
 
     fn = _named_fn(f"kernel_{spec.name}", spec.args, _rowwise(batched))
     fn.__batched__ = batched
@@ -196,34 +218,47 @@ def _make_placed(spec: KernelSpec, call: KernelCall) -> Callable:
     return fn
 
 
-def _make_step(spec: KernelSpec, call: KernelCall) -> Callable:
+def _make_step(spec: KernelSpec, call: KernelCall,
+               bound: Tuple[Any, ...] = ()) -> Callable:
     kw = call.kwargs()
 
     def batched(*cols):
-        return spec.ref(*cols, **kw)
+        return spec.ref(*cols, *bound, **kw)
 
     fn = _named_fn(spec.name, spec.args, _rowwise(batched))
     fn.__batched__ = batched
     fn.__kernel__ = call
-    fn.__kernel_placed__ = _make_placed(spec, call)
+    fn.__kernel_placed__ = _make_placed(spec, call, bound)
     return fn
 
 
-#: KernelCall -> step fn / twin — function-object stability across
-#: recompiles is what keeps executable-cache keys and router state shared
-_STEPS: Dict[KernelCall, Callable] = {}
+#: (KernelCall, bound ids) -> step fn; KernelCall -> twin — function-object
+#: stability across recompiles is what keeps executable-cache keys and
+#: router state shared
+_STEPS: Dict[Tuple[KernelCall, Tuple[Tuple[str, int], ...]], Callable] = {}
 _PLACED: Dict[KernelCall, Callable] = {}
 
 
-def kernel_step(kernel: str, **params) -> Callable:
+def kernel_step(kernel: str, *, bound: Optional[Dict[str, Any]] = None,
+                **params) -> Callable:
     """A dataflow map step for ``kernel``: torch.Tensor-annotated, oracle
-    semantics, tagged for placement.  Memoized per ``(kernel, params)``.
-    (The reference's ``bound=`` constant arguments arrive with ``wkv6``,
-    the kernel that needs them.)"""
+    semantics, tagged for placement.  ``bound`` holds trailing kernel
+    arguments closed over as constants rather than consumed as columns
+    (``wkv6``'s ``u``, which is per model, not per row).  Memoized per
+    ``(kernel, params, bound identities)``."""
     call = _call(kernel, params)
-    fn = _STEPS.get(call)
+    spec = KERNEL_REGISTRY[kernel]
+    bound = bound or {}
+    n_bound = len(bound)
+    if n_bound and tuple(bound) != spec.args[-n_bound:]:
+        raise ValueError(f"{kernel}: bound args {list(bound)} must be the "
+                         f"trailing args of {spec.args}")
+    key = (call, tuple((k, id(v)) for k, v in bound.items()))
+    fn = _STEPS.get(key)
     if fn is None:
-        fn = _STEPS[call] = _make_step(KERNEL_REGISTRY[kernel], call)
+        if n_bound:
+            spec = dataclasses.replace(spec, args=spec.args[:-n_bound])
+        fn = _STEPS[key] = _make_step(spec, call, tuple(bound.values()))
     return fn
 
 

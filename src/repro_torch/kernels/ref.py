@@ -1,7 +1,7 @@
-"""Naive PyTorch oracles for the attention kernels (port of the reference
-package's ``kernels/ref.py``: full score matrices, f32 math, output in the
-query's dtype).  ``wkv6_ref`` and ``rglru_scan_ref`` arrive with their
-kernels."""
+"""Naive PyTorch oracles for the kernels (port of the reference package's
+``kernels/ref.py``): full score matrices for attention, f32 math, output
+in the query's dtype; sequential f32 loops over time for the two
+recurrences."""
 from __future__ import annotations
 
 import math
@@ -57,3 +57,38 @@ def decode_attention_ref(q, k_cache, v_cache, k_positions, q_position, *,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bksd->bkgd", p, v_cache.float())
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+def wkv6_state_ref(r, k, v, w, u, state=None):
+    """Sequential WKV6 from ``state`` (zeros when None).  r,k,v,w:
+    [B,T,H,hd]; u: [H,hd]; state: [B,H,hd,hd].  Returns (y [B,T,H,hd],
+    final state [B,H,hd,hd]), both f32."""
+    B, T, H, hd = r.shape
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    S = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+         if state is None else state.float())
+    ys = []
+    for t in range(T):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]      # [B,H,i,j]
+        ys.append(torch.einsum("bhi,bhij->bhj", rf[:, t], S + uf * kv))
+        S = wf[:, t, :, :, None] * S + kv
+    return torch.stack(ys, dim=1), S
+
+
+def wkv6_ref(r, k, v, w, u):
+    """Sequential WKV6.  r,k,v,w: [B,T,H,hd]; u: [H,hd] -> y [B,T,H,hd] f32."""
+    return wkv6_state_ref(r, k, v, w, u)[0]
+
+
+def rglru_scan_ref(a, x, h0=None):
+    """Sequential diagonal recurrence.  a, x: [B,T,R] -> h traj [B,T,R] f32."""
+    B, T, R = a.shape
+    h = (torch.zeros((B, R), dtype=torch.float32, device=a.device)
+         if h0 is None else h0.float())
+    af, xf = a.float(), x.float()
+    hs = []
+    for t in range(T):
+        h = af[:, t] * h + xf[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1)

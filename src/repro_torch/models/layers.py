@@ -1,8 +1,9 @@
-"""Shared layers of the dense transformer (port of the reference package's
-``models/layers.py``, the subset the dense path needs).
+"""Shared layers of the model zoo (port of the reference package's
+``models/layers.py``, the subset the ported families need).
 
 Plain functions over tensors, numerically the reference's: rmsnorm in the
-``(1 + scale)`` form with zero-initialised scale, half-split (not
+``(1 + scale)`` form with zero-initialised scale, layernorm, RWKV-6's
+per-head group norm (population variance, eps 64e-5), half-split (not
 interleaved) RoPE, KV-chunked online-softmax attention with masked logits
 at -1e30, and single-token decode attention over a ring cache.  The CUDA
 kernels in :mod:`repro_torch.kernels` replace the two attention functions
@@ -28,10 +29,37 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     return (out * (1.0 + scale.float())).to(dtype)
 
 
+def layernorm(x, scale, bias, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(dtype)
+
+
 def apply_norm(x, params, kind: str):
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
-    return rmsnorm(x, params["scale"])
+    if kind == "rmsnorm":
+        return rmsnorm(x, params["scale"])
+    return layernorm(x, params["scale"], params["bias"])
+
+
+def groupnorm_heads(x, scale, bias, num_heads: int, eps: float = 64e-5):
+    """GroupNorm over per-head channels (RWKV6 time-mix output norm)."""
+    b, t, d = x.shape
+    xs = x.float().reshape(b, t, num_heads, d // num_heads)
+    mu = torch.mean(xs, dim=-1, keepdim=True)
+    var = torch.var(xs, dim=-1, keepdim=True, correction=0)
+    xs = ((xs - mu) * torch.rsqrt(var + eps)).reshape(b, t, d)
+    return (xs * scale.float() + bias.float()).to(x.dtype)
+
+
+def layer_slice(tree, j: int):
+    """Layer (or block) ``j`` of layer-stacked params or caches: index the
+    leading axis of every leaf (views, no copy)."""
+    if isinstance(tree, dict):
+        return {k: layer_slice(v, j) for k, v in tree.items()}
+    return tree[j]
 
 
 # ---------------------------------------------------------------------------

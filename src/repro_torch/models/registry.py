@@ -1,5 +1,6 @@
 """Model facade and plan-operator glue (port of the reference package's
-``models/registry.py``, dense family).
+``models/registry.py``: the dense, ssm (rwkv6) and hybrid
+(recurrentgemma) families).
 
 ``build_model(cfg, device=None)`` returns a :class:`Model` with
 ``init(generator)``, ``logits``, ``prefill``, ``init_cache`` and
@@ -13,9 +14,12 @@ Row-wise column contracts (per table row), as in the reference:
 * ``decode``  — (tok, pos, *cache leaves) -> same shape: one greedy
                                              decode step advances them
 
-The KV cache rides the table as per-row columns (one per cache leaf, in
-sorted key order: ``k0``, ``pos0``, ``v0``), batch-leading, so a prefill
--> decode -> decode chain fuses into one device-resident chain.
+The cache rides the table as per-row columns, one per cache leaf in the
+order of ``jax.tree_util.tree_flatten`` (sorted keys at every level of
+the nesting: ``k0``, ``pos0``, ``v0`` for the dense family; ``blocks/0/
+conv``, ``blocks/0/h``, ..., ``rest/...`` for recurrentgemma), so column
+``c{i}`` is the reference's leaf ``i``.  Columns are batch-leading, so a
+prefill -> decode -> decode chain fuses into one device-resident chain.
 
 Native batching: the reference gives each stage a ``custom_vmap`` rule so
 a vmapped chain runs the whole row batch through the model at once.  The
@@ -32,9 +36,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import rglru, rwkv6, transformer
 
-_FAMILY_MODULES = {"dense": transformer}
+_FAMILY_MODULES = {"dense": transformer, "ssm": rwkv6, "hybrid": rglru}
 
 
 @dataclasses.dataclass
@@ -75,7 +79,8 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:
     another; raises without a card)."""
     if cfg.family not in _FAMILY_MODULES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            f"family {cfg.family!r} is not ported yet (have "
+            f"{sorted(_FAMILY_MODULES)})")
     return Model(cfg=cfg, device=resolve_device(device))
 
 
@@ -108,22 +113,41 @@ def _stage_fn(fname: str, argnames, batched, ret_arity: int):
     return f
 
 
+def _flatten(tree, prefix: Tuple[str, ...] = ()):
+    """(key path, leaf) pairs of a nested dict in ``tree_flatten`` order:
+    sorted keys at every level."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in _flatten(tree[k], prefix + (k,))]
+    return [(prefix, tree)]
+
+
+def _unflatten(paths, leaves):
+    tree: Dict[str, Any] = {}
+    for path, leaf in zip(paths, leaves):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return tree
+
+
 def _cache_layout(model: Model, cache_len: int):
-    """(sorted leaf names, per-leaf batch axis, per-leaf meta tensor at
-    B=1).  The batch axis of each leaf is found by diffing its shape at
-    B=1 and B=2 (meta tensors: nothing is allocated)."""
-    c1 = model.init_cache(1, cache_len, device="meta")
-    c2 = model.init_cache(2, cache_len, device="meta")
-    names = sorted(c1)
+    """(leaf key paths, per-leaf batch axis, per-leaf meta tensor at B=1),
+    in ``tree_flatten`` order.  The batch axis of each leaf is found by
+    diffing its shape at B=1 and B=2 (meta tensors: nothing is
+    allocated)."""
+    l1 = _flatten(model.init_cache(1, cache_len, device="meta"))
+    l2 = _flatten(model.init_cache(2, cache_len, device="meta"))
     axes = []
-    for n in names:
-        diff = [i for i, (x, y) in enumerate(zip(c1[n].shape, c2[n].shape))
+    for (path, a), (_, b) in zip(l1, l2):
+        diff = [i for i, (x, y) in enumerate(zip(a.shape, b.shape))
                 if x != y]
         if len(diff) != 1:
             raise ValueError(f"cannot identify batch axis of cache leaf "
-                             f"{n} {tuple(c1[n].shape)}")
+                             f"{'/'.join(path)} {tuple(a.shape)}")
         axes.append(diff[0])
-    return names, axes, [c1[n] for n in names]
+    return [p for p, _ in l1], axes, [a for _, a in l1]
 
 
 def model_stage_op(model: Model, params, stage: str, *,
@@ -133,18 +157,18 @@ def model_stage_op(model: Model, params, stage: str, *,
     decode cache geometry."""
     from repro_torch.core import operators as ops
 
-    names_c, batch_axes, _ = _cache_layout(model, cache_len)
-    state_names = ["tok", "pos"] + [f"c{i}" for i in range(len(names_c))]
+    paths, batch_axes, _ = _cache_layout(model, cache_len)
+    state_names = ["tok", "pos"] + [f"c{i}" for i in range(len(paths))]
 
     def _split(cache):
         """native cache -> batch-leading leaf columns (views)"""
-        return [torch.movedim(cache[n], ax, 0)
-                for n, ax in zip(names_c, batch_axes)]
+        return [torch.movedim(leaf, ax, 0)
+                for (_, leaf), ax in zip(_flatten(cache), batch_axes)]
 
     def _join(leaves):
         """batch-leading leaf columns -> native cache (views)"""
-        return {n: torch.movedim(l, 0, ax)
-                for n, l, ax in zip(names_c, leaves, batch_axes)}
+        return _unflatten(paths, [torch.movedim(l, 0, ax)
+                                  for l, ax in zip(leaves, batch_axes)])
 
     if stage == "prefill":
         def batched(tokens):
@@ -156,7 +180,7 @@ def model_stage_op(model: Model, params, stage: str, *,
             return (tok, pos, *_split(cache))
 
         fn = _stage_fn(f"{model_name}_prefill", ("tokens",), batched,
-                       2 + len(names_c))
+                       2 + len(paths))
     elif stage == "decode":
         def batched(tok, pos, *leaves):
             logits, new_cache = model.decode_step(params, tok[:, None], pos,
@@ -165,7 +189,7 @@ def model_stage_op(model: Model, params, stage: str, *,
             return (ntok, pos + 1, *_split(new_cache))
 
         fn = _stage_fn(f"{model_name}_decode", tuple(state_names), batched,
-                       2 + len(names_c))
+                       2 + len(paths))
     else:
         raise ValueError(f"unknown stage {stage!r} (prefill | decode)")
     return ops.ModelOp(fn=fn, names=list(state_names),

@@ -1,0 +1,367 @@
+"""RecurrentGemma / Griffin: RG-LRU recurrent blocks and local attention,
+2:1 (port of the reference package's ``models/rglru.py``).
+[arXiv:2402.19427]
+
+Layer pattern: (recurrent, recurrent, local attention) repeated; each
+layer is a temporal block followed by a gated MLP.  Parameters and caches
+keep the reference's nesting: ``blocks/<i>/...`` leaves carry the block
+axis first (a Python loop over it replaces ``lax.scan``), ``rest/<j>/...``
+hold the remainder layers unstacked (26 = 8 * 3 + 2).
+
+``cfg.use_kernels`` sends the prefill's recurrence (``T > 1``) to the
+``rglru_scan`` CUDA kernel; otherwise it runs the sequential f32 loop
+(the reference's ``associative_scan`` computes the same function).  The
+local-attention layers use the plain ``layers.chunked_attention`` and
+``layers.decode_attention``, as the reference does: it never sends them
+to its attention kernels.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.interop import torch_dtype
+from repro_torch.kernels import ref
+from repro_torch.models import layers, transformer
+
+C_SCALE = 8.0  # Griffin's fixed recurrence sharpness
+
+
+def layer_types(cfg: ModelConfig) -> List[str]:
+    p = cfg.attn_layer_period
+    return ["attn" if (i % p) == p - 1 else "rec"
+            for i in range(cfg.num_layers)]
+
+
+def layout(cfg: ModelConfig) -> Tuple[List[str], int, List[str]]:
+    """(block pattern, n_blocks, remainder types)."""
+    types = layer_types(cfg)
+    p = cfg.attn_layer_period
+    n_blocks = cfg.num_layers // p
+    return types[:p], n_blocks, types[n_blocks * p:]
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device: DeviceLike = None) -> Dict[str, Any]:
+    """Random weights with the reference's shapes, types and scales
+    (``rglru.py:init_params``): matrices normal(0, 1/sqrt(fan_in)) in
+    ``cfg.dtype``, f32 ``lam`` so that ``a = sigmoid(lam)^c`` starts in
+    (0.9, 0.999), f32 gate weights at zero, zero rmsnorm scales.  Draws
+    come from ``generator`` (seed 0 when None), not ``jax.random``."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    dtype = torch_dtype(cfg.dtype)
+    f32 = torch.float32
+    D, Fd, R, cw = cfg.d_model, cfg.d_ff, cfg.rnn_dim, cfg.conv_width
+    hd, Hp, Kp = cfg.head_dim, cfg.padded_heads(1), cfg.replicated_kv_heads(1)
+    pattern, n_blocks, rest = layout(cfg)
+
+    def dense(shape, fan_in):
+        return layers.dense_init(shape, dtype, fan_in=fan_in,
+                                 generator=generator, device=dev)
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    def layer(kind: str, lead: Tuple[int, ...]):
+        p: Dict[str, Any] = {
+            "ln1": {"scale": zeros(lead + (D,))},
+            "ln2": {"scale": zeros(lead + (D,))},
+            "mlp": {"w_gate": dense(lead + (D, Fd), D),
+                    "w_up": dense(lead + (D, Fd), D),
+                    "w_down": dense(lead + (Fd, D), Fd)},
+        }
+        if kind == "rec":
+            u = torch.rand(lead + (R,), generator=generator, dtype=f32,
+                           device=dev) * (0.999 - 0.9) + 0.9
+            uc = u ** (1.0 / C_SCALE)
+            p["rec"] = {
+                "wx": dense(lead + (D, R), D),
+                "wgate": dense(lead + (D, R), D),
+                "conv_w": dense(lead + (cw, R), cw),
+                "conv_b": zeros(lead + (R,)),
+                "lam": torch.log(uc / (1 - uc)),
+                "wi_a": zeros(lead + (R,), f32),
+                "wi_b": zeros(lead + (R,), f32),
+                "wr_a": zeros(lead + (R,), f32),
+                "wr_b": zeros(lead + (R,), f32),
+                "wo": dense(lead + (R, D), R),
+            }
+        else:
+            p["attn"] = {"wq": dense(lead + (D, Hp * hd), D),
+                         "wk": dense(lead + (D, Kp * hd), D),
+                         "wv": dense(lead + (D, Kp * hd), D),
+                         "wo": dense(lead + (Hp * hd, D), Hp * hd)}
+        return p
+
+    return {
+        "embed": dense((cfg.padded_vocab, D), D),
+        "final_norm": {"scale": zeros((D,))},
+        "blocks": {str(i): layer(kind, (n_blocks,))
+                   for i, kind in enumerate(pattern)},
+        "rest": {str(j): layer(kind, ()) for j, kind in enumerate(rest)},
+    }
+
+
+# ---------------------------------------------------------------------------
+# temporal blocks
+# ---------------------------------------------------------------------------
+def _conv1d(u, w, b, conv_state=None):
+    """Causal depthwise temporal conv.  u: [B, T, R]; w: [cw, R].
+    conv_state: [B, cw-1, R] previous inputs (decode)."""
+    cw = w.shape[0]
+    if conv_state is None:
+        pad = torch.zeros((u.shape[0], cw - 1, u.shape[2]), dtype=u.dtype,
+                          device=u.device)
+    else:
+        pad = conv_state.to(u.dtype)
+    full = torch.cat([pad, u], dim=1)                   # [B, T+cw-1, R]
+    out = sum(full[:, i:i + u.shape[1]] * w[i] for i in range(cw))
+    new_state = full[:, -(cw - 1):]
+    return out + b, new_state
+
+
+def _rglru_gates(u, rp):
+    """u: [..., R] conv output -> (a, gated_input) in f32."""
+    uf = u.float()
+    i_gate = torch.sigmoid(rp["wi_a"] * uf + rp["wi_b"])
+    r_gate = torch.sigmoid(rp["wr_a"] * uf + rp["wr_b"])
+    log_a = -C_SCALE * F.softplus(rp["lam"]) * r_gate
+    a = torch.exp(log_a)
+    x_in = torch.sqrt(torch.clamp_min(1.0 - torch.square(a), 1e-12)) * (
+        i_gate * uf)
+    return a, x_in
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")       # jax.nn.gelu's default
+
+
+def _rec_block_full(x, rp, cfg: ModelConfig, build_cache: bool):
+    """x: [B, T, D] -> (out, state_cache)."""
+    gate = _gelu((x @ rp["wgate"]).float())
+    u = x @ rp["wx"]
+    u, conv_state = _conv1d(u, rp["conv_w"], rp["conv_b"])
+    a, x_in = _rglru_gates(u, rp)
+    # linear recurrence h_t = a_t h_{t-1} + x_t
+    if cfg.use_kernels and x.shape[1] > 1:
+        from repro_torch.kernels import ops as kops
+        h = kops.rglru_scan(a, x_in)
+    else:
+        h = ref.rglru_scan_ref(a, x_in)
+    y = (h * gate).to(x.dtype) @ rp["wo"]
+    cache = {}
+    if build_cache:
+        cache = {"h": h[:, -1], "conv": conv_state}
+    return y, cache
+
+
+def _rec_block_step(x, rp, state):
+    """x: [B, 1, D]; state: {h: [B,R] f32, conv: [B,cw-1,R]}."""
+    gate = _gelu((x @ rp["wgate"]).float())
+    u = x @ rp["wx"]
+    u, conv_state = _conv1d(u, rp["conv_w"], rp["conv_b"],
+                            conv_state=state["conv"])
+    a, x_in = _rglru_gates(u, rp)
+    h = a[:, 0] * state["h"] + x_in[:, 0]
+    y = (h[:, None] * gate).to(x.dtype) @ rp["wo"]
+    return y, {"h": h, "conv": conv_state.to(state["conv"].dtype)}
+
+
+def _attn_full(x, apm, cfg: ModelConfig, positions):
+    B, S, _ = x.shape
+    q, k, v = transformer.project_qkv(x, apm, cfg)
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    chunk = min(1024, S)
+    out = layers.chunked_attention(
+        q, k, v, q_positions=positions, k_positions=positions, causal=True,
+        window=cfg.sliding_window, chunk_q=chunk, chunk_k=chunk,
+        scale=1.0 / math.sqrt(cfg.head_dim))
+    return out.reshape(B, S, -1) @ apm["wo"], k, v
+
+
+def _attn_step(x, apm, cfg: ModelConfig, pos, kc, vc, pc):
+    """One-token local attention.  kc/vc: [B,W,Kp,hd] and pc: [B,W] —
+    this layer's slices of the decode step's private cache copy, written
+    IN PLACE at slot ``pos % W``."""
+    B = x.shape[0]
+    q, k, v = transformer.project_qkv(x, apm, cfg)
+    q = layers.apply_rope(q, pos[:, None], cfg.rope_theta)
+    k = layers.apply_rope(k, pos[:, None], cfg.rope_theta)
+    W = kc.shape[1]
+    slot = (pos % W).long()
+    b_idx = torch.arange(B, device=x.device)
+    kc[b_idx, slot] = k[:, 0]
+    vc[b_idx, slot] = v[:, 0]
+    pc[b_idx, slot] = pos.to(pc.dtype)
+    out = layers.decode_attention(q, kc, vc, q_position=pos, k_positions=pc,
+                                  window=cfg.sliding_window,
+                                  scale=1.0 / math.sqrt(cfg.head_dim))
+    return out.reshape(B, 1, -1) @ apm["wo"]
+
+
+def _mlp(x, mp):
+    h = _gelu((x @ mp["w_gate"]).float()).to(x.dtype) * (x @ mp["w_up"])
+    return h @ mp["w_down"]
+
+
+# ---------------------------------------------------------------------------
+def _ring_cache(k, v, positions, cfg: ModelConfig, cache_len):
+    """The prefill's local-attention cache: the last ``keep`` keys
+    scattered to ``slot = position % W`` so decode's ring addressing
+    overwrites the genuinely oldest entries (empty slots hold -1)."""
+    B, S = k.shape[0], k.shape[1]
+    cap = cache_len if cache_len else S
+    W = min(cfg.sliding_window, cap) if cfg.sliding_window else cap
+    keep = min(W, S)
+    kept_pos = positions[S - keep:]
+    slots = (kept_pos % W).long()
+    ks = torch.zeros((B, W) + k.shape[2:], dtype=k.dtype, device=k.device)
+    vs = torch.zeros((B, W) + v.shape[2:], dtype=v.dtype, device=v.device)
+    ks[:, slots] = k[:, S - keep:]
+    vs[:, slots] = v[:, S - keep:]
+    ps = torch.full((B, W), -1, dtype=torch.int32, device=k.device)
+    ps[:, slots] = kept_pos.to(torch.int32)
+    return {"k": ks, "v": vs, "pos": ps}
+
+
+def _apply_layer_full(x, lp, kind: str, cfg, positions, build_cache,
+                      cache_len=None):
+    h = layers.apply_norm(x, lp["ln1"], cfg.norm)
+    cache = {}
+    if kind == "rec":
+        y, cache = _rec_block_full(h, lp["rec"], cfg, build_cache)
+    else:
+        y, k, v = _attn_full(h, lp["attn"], cfg, positions)
+        if build_cache:
+            cache = _ring_cache(k, v, positions, cfg, cache_len)
+    x = x + y
+    h = layers.apply_norm(x, lp["ln2"], cfg.norm)
+    return x + _mlp(h, lp["mlp"]), cache
+
+
+def _apply_layer_step(x, lp, kind: str, cfg, pos, cache):
+    """``cache`` holds views of the step's private copy: a recurrent
+    layer's new state and an attention layer's new slot are written into
+    them."""
+    h = layers.apply_norm(x, lp["ln1"], cfg.norm)
+    if kind == "rec":
+        y, new = _rec_block_step(h, lp["rec"], cache)
+        cache["h"].copy_(new["h"])
+        cache["conv"].copy_(new["conv"])
+    else:
+        y = _attn_step(h, lp["attn"], cfg, pos, cache["k"], cache["v"],
+                       cache["pos"])
+    x = x + y
+    h = layers.apply_norm(x, lp["ln2"], cfg.norm)
+    return x + _mlp(h, lp["mlp"])
+
+
+@torch.no_grad()
+def forward(params, tokens, cfg: ModelConfig, *, build_cache: bool = False,
+            cache_len: Optional[int] = None, **_unused):
+    """tokens: [B, S] -> logits [B, S, V]; with ``build_cache`` also the
+    decode cache ``{"blocks": {...}, "rest": {...}}``."""
+    pattern, n_blocks, rest = layout(cfg)
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    x = layers.embed_lookup(params["embed"], tokens,
+                            scale_by_dim=cfg.embedding_scale)
+    block_caches: Dict[str, Dict[str, list]] = {
+        str(i): {} for i in range(len(pattern))}
+    for j in range(n_blocks):
+        bp = layers.layer_slice(params["blocks"], j)
+        for i, kind in enumerate(pattern):
+            x, c = _apply_layer_full(x, bp[str(i)], kind, cfg, positions,
+                                     build_cache, cache_len)
+            for name, leaf in c.items():
+                block_caches[str(i)].setdefault(name, []).append(leaf)
+    rest_caches = {}
+    for j, kind in enumerate(rest):
+        x, c = _apply_layer_full(x, params["rest"][str(j)], kind, cfg,
+                                 positions, build_cache, cache_len)
+        rest_caches[str(j)] = c
+    x = layers.apply_norm(x, params["final_norm"], cfg.norm)
+    logits = layers.unembed(x, params["embed"],
+                            softcap=cfg.final_logit_softcap)
+    if build_cache:
+        blocks = {i: {n: torch.stack(v) for n, v in c.items()}
+                  for i, c in block_caches.items()}
+        return logits, {"blocks": blocks, "rest": rest_caches}
+    return logits
+
+
+def _empty_layer_cache(cfg: ModelConfig, kind: str, batch: int,
+                       cache_len: int, lead: Tuple[int, ...], dev):
+    dtype = torch_dtype(cfg.dtype)
+    if kind == "rec":
+        R, cw = cfg.rnn_dim, cfg.conv_width
+        return {"h": torch.zeros(lead + (batch, R), dtype=torch.float32,
+                                 device=dev),
+                "conv": torch.zeros(lead + (batch, cw - 1, R), dtype=dtype,
+                                    device=dev)}
+    Kp, hd = cfg.replicated_kv_heads(1), cfg.head_dim
+    W = min(cfg.sliding_window, cache_len) if cfg.sliding_window \
+        else cache_len
+    return {"k": torch.zeros(lead + (batch, W, Kp, hd), dtype=dtype,
+                             device=dev),
+            "v": torch.zeros(lead + (batch, W, Kp, hd), dtype=dtype,
+                             device=dev),
+            "pos": torch.full(lead + (batch, W), -1, dtype=torch.int32,
+                              device=dev)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               device: DeviceLike = None):
+    """Empty decode cache.  ``device="meta"`` gives shapes and dtypes
+    without allocating."""
+    dev = resolve_device(device)
+    pattern, n_blocks, rest = layout(cfg)
+    return {
+        "blocks": {str(i): _empty_layer_cache(cfg, kind, batch, cache_len,
+                                              (n_blocks,), dev)
+                   for i, kind in enumerate(pattern)},
+        "rest": {str(j): _empty_layer_cache(cfg, kind, batch, cache_len, (),
+                                            dev)
+                 for j, kind in enumerate(rest)},
+    }
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+@torch.no_grad()
+def decode_step(params, tokens, pos, cache, cfg: ModelConfig):
+    """tokens: [B, 1]; pos: [B].  Returns (logits [B, 1, V], new cache).
+    The input cache is left as it was: the step writes into a copy (the
+    reference's ``.at[].set`` is functional, and the cache tensors may be
+    views of table columns that other consumers share)."""
+    pattern, n_blocks, rest = layout(cfg)
+    new_cache = _clone(cache)
+    x = layers.embed_lookup(params["embed"], tokens,
+                            scale_by_dim=cfg.embedding_scale)
+    for j in range(n_blocks):
+        bp = layers.layer_slice(params["blocks"], j)
+        bc = layers.layer_slice(new_cache["blocks"], j)   # views of the copy
+        for i, kind in enumerate(pattern):
+            x = _apply_layer_step(x, bp[str(i)], kind, cfg, pos, bc[str(i)])
+    for j, kind in enumerate(rest):
+        x = _apply_layer_step(x, params["rest"][str(j)], kind, cfg, pos,
+                              new_cache["rest"][str(j)])
+    x = layers.apply_norm(x, params["final_norm"], cfg.norm)
+    logits = layers.unembed(x, params["embed"],
+                            softcap=cfg.final_logit_softcap)
+    return logits, new_cache

@@ -1,0 +1,227 @@
+"""RWKV-6 "Finch": attention-free time mix with data-dependent decay
+(port of the reference package's ``models/rwkv6.py``).  [arXiv:2404.05892]
+
+State per layer: the wkv matrix state S [B, H, hd, hd] (f32) and the two
+token-shift vectors.  Parameters keep the reference's layer-stacked
+layout (``blocks/...`` leaves carry the layer axis first); a Python loop
+over that axis replaces ``lax.scan``.
+
+Types follow JAX's promotion: the mixing vectors, ``u``, ``w0`` and the
+group-norm params are f32 and the matrices are in ``cfg.dtype``, so the
+mixed inputs are f32 and their products with bf16 weights run in f32
+(``torch.matmul`` refuses mixed types; :func:`_mm` casts the weight).
+
+``cfg.use_kernels`` sends the prefill's recurrence (``T > 1``) to the
+``wkv6`` CUDA kernel, which also returns the final state for the decode
+cache; a decode step is one elementwise step in plain PyTorch, as in the
+reference.  On CPU tensors the kernel wrapper runs its plain version.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.interop import torch_dtype
+from repro_torch.kernels import ref
+from repro_torch.models import layers
+
+TM_LORA = 32
+DECAY_LORA = 64
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device: DeviceLike = None) -> Dict[str, Any]:
+    """Random weights with the reference's shapes, types and scales
+    (``rwkv6.py:init_params``): f32 mixing vectors uniform in +-0.1, ``u``
+    in +-0.5, ``w0`` = -0.5, unit group norm; matrices normal(0,
+    1/sqrt(fan_in)) in ``cfg.dtype``.  Draws come from ``generator``
+    (seed 0 when None), not the reference's ``jax.random``."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    dtype = torch_dtype(cfg.dtype)
+    D, Fd, L = cfg.d_model, cfg.d_ff, cfg.num_layers
+    H, hd = cfg.num_rwkv_heads, cfg.rwkv_head_dim
+    f32 = torch.float32
+
+    def dense(shape, fan_in):
+        return layers.dense_init(shape, dtype, fan_in=fan_in,
+                                 generator=generator, device=dev)
+
+    def uniform(shape, s=0.1):
+        x = torch.rand(shape, generator=generator, dtype=f32, device=dev)
+        return x.mul_(2 * s).sub_(s)
+
+    def norms():
+        return {"scale": torch.ones((L, D), dtype=dtype, device=dev),
+                "bias": torch.zeros((L, D), dtype=dtype, device=dev)}
+
+    blocks = {
+        "ln1": norms(),
+        "ln2": norms(),
+        "mu_x": uniform((L, D)),
+        "mu_mix": uniform((L, 5, D)),
+        "tm_w1": dense((L, D, 5 * TM_LORA), D),
+        "tm_w2": dense((L, 5, TM_LORA, D), TM_LORA),
+        "w0": torch.full((L, D), -0.5, dtype=f32, device=dev),
+        "dw1": dense((L, D, DECAY_LORA), D),
+        "dw2": dense((L, DECAY_LORA, D), DECAY_LORA),
+        "u": uniform((L, H, hd), 0.5),
+        "wr": dense((L, D, D), D),
+        "wk": dense((L, D, D), D),
+        "wv": dense((L, D, D), D),
+        "wg": dense((L, D, D), D),
+        "wo": dense((L, D, D), D),
+        "gn_scale": torch.ones((L, D), dtype=f32, device=dev),
+        "gn_bias": torch.zeros((L, D), dtype=f32, device=dev),
+        "cm_mu_k": uniform((L, D)),
+        "cm_mu_r": uniform((L, D)),
+        "cm_wk": dense((L, D, Fd), D),
+        "cm_wv": dense((L, Fd, D), Fd),
+        "cm_wr": dense((L, D, D), D),
+    }
+    return {
+        "embed": dense((cfg.padded_vocab, D), D),
+        "final_norm": {"scale": torch.ones((D,), dtype=dtype, device=dev),
+                       "bias": torch.zeros((D,), dtype=dtype, device=dev)},
+        "blocks": blocks,
+    }
+
+
+def _mm(a, b):
+    """``a @ b`` in the promoted type, as JAX computes a mixed product."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
+def _ddlerp(x, xprev, lp):
+    """Data-dependent lerp producing the 5 mixed inputs (w,k,v,r,g)."""
+    dx = xprev - x
+    xxx = x + dx * lp["mu_x"]
+    B, T, D = x.shape
+    low = torch.tanh(_mm(xxx, lp["tm_w1"])).reshape(B, T, 5, TM_LORA)
+    w2 = lp["tm_w2"]
+    mixes = torch.einsum("btjl,jld->btjd", low,
+                         w2.to(torch.promote_types(low.dtype, w2.dtype)))
+    return [x + dx * (lp["mu_mix"][j] + mixes[:, :, j]) for j in range(5)]
+
+
+def _time_mix(x, xprev, S, lp, cfg: ModelConfig, *, need_state=True):
+    B, T, D = x.shape
+    H, hd = cfg.num_rwkv_heads, cfg.rwkv_head_dim
+    xw, xk, xv, xr, xg = _ddlerp(x, xprev, lp)
+    f32 = torch.float32
+    r = _mm(xr, lp["wr"]).to(f32)
+    k = _mm(xk, lp["wk"]).to(f32)
+    v = _mm(xv, lp["wv"]).to(f32)
+    g = F.silu(_mm(xg, lp["wg"]).to(f32))
+    decay_low = _mm(torch.tanh(_mm(xw, lp["dw1"])), lp["dw2"])
+    w = torch.exp(-torch.exp((lp["w0"] + decay_low).to(f32)))   # [B,T,D]
+    hshape = (B, T, H, hd)
+    r4, k4, v4, w4 = (t.reshape(hshape) for t in (r, k, v, w))
+    u = lp["u"].to(f32)
+    if cfg.use_kernels and T > 1:
+        from repro_torch.kernels import ops as kops
+        # the kernel covers the zero-state fresh sequence (prefill) and
+        # returns the tail state for the decode cache in the same pass
+        if need_state:
+            y, S = kops.wkv6(r4, k4, v4, w4, u, return_state=True)
+        else:
+            y = kops.wkv6(r4, k4, v4, w4, u)
+    else:
+        y, S = ref.wkv6_state_ref(r4, k4, v4, w4, u, S)
+    y = layers.groupnorm_heads(y.reshape(B, T, D), lp["gn_scale"],
+                               lp["gn_bias"], H)
+    out = (y * g).to(x.dtype) @ lp["wo"]
+    return out, S
+
+
+def _channel_mix(x, xprev, lp):
+    dx = xprev - x
+    xk = x + dx * lp["cm_mu_k"]
+    xr = x + dx * lp["cm_mu_r"]
+    kk = torch.square(torch.relu(_mm(xk, lp["cm_wk"])))
+    return torch.sigmoid(_mm(xr, lp["cm_wr"])) * _mm(kk, lp["cm_wv"])
+
+
+def _shift(x, prev):
+    """prev: [B, D] last token of the previous chunk (zeros at t=0)."""
+    return torch.cat([prev[:, None], x[:, :-1]], dim=1)
+
+
+@torch.no_grad()
+def forward(params, tokens, cfg: ModelConfig, *, build_cache: bool = False,
+            cache_len: Optional[int] = None, **_unused):
+    """tokens: [B, T] -> logits [B, T, V]; with ``build_cache`` also the
+    decode cache {S, tm_shift, cm_shift} stacked over layers."""
+    B, T = tokens.shape
+    H, hd = cfg.num_rwkv_heads, cfg.rwkv_head_dim
+    dtype = torch_dtype(cfg.dtype)
+    x = layers.embed_lookup(params["embed"], tokens)
+    caches: Dict[str, list] = {"S": [], "tm_shift": [], "cm_shift": []}
+    for j in range(cfg.num_layers):
+        lp = layers.layer_slice(params["blocks"], j)
+        zeros_shift = torch.zeros((B, x.shape[-1]), dtype=x.dtype,
+                                  device=x.device)
+        S0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                         device=x.device)
+        h1 = layers.layernorm(x, lp["ln1"]["scale"], lp["ln1"]["bias"])
+        tm_out, S = _time_mix(h1, _shift(h1, zeros_shift), S0, lp, cfg,
+                              need_state=build_cache)
+        x = x + tm_out
+        h2 = layers.layernorm(x, lp["ln2"]["scale"], lp["ln2"]["bias"])
+        x = (x + _channel_mix(h2, _shift(h2, zeros_shift), lp)).to(dtype)
+        if build_cache:
+            caches["S"].append(S)
+            caches["tm_shift"].append(h1[:, -1])
+            caches["cm_shift"].append(h2[:, -1])
+    x = layers.apply_norm(x, params["final_norm"], cfg.norm)
+    logits = layers.unembed(x, params["embed"])
+    if build_cache:
+        return logits, {k: torch.stack(v) for k, v in caches.items()}
+    return logits
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               device: DeviceLike = None):
+    """Empty decode cache (stacked over layers).  ``device="meta"`` gives
+    shapes and dtypes without allocating."""
+    dev = resolve_device(device)
+    L = cfg.num_layers
+    D, H, hd = cfg.d_model, cfg.num_rwkv_heads, cfg.rwkv_head_dim
+    dtype = torch_dtype(cfg.dtype)
+    return {
+        "S": torch.zeros((L, batch, H, hd, hd), dtype=torch.float32,
+                         device=dev),
+        "tm_shift": torch.zeros((L, batch, D), dtype=dtype, device=dev),
+        "cm_shift": torch.zeros((L, batch, D), dtype=dtype, device=dev),
+    }
+
+
+@torch.no_grad()
+def decode_step(params, tokens, pos, cache, cfg: ModelConfig):
+    """tokens: [B, 1].  Cache: {S, tm_shift, cm_shift} stacked over
+    layers.  Returns (logits [B, 1, V], new cache); the input cache is
+    left as it was (every layer's state is new, stacked afresh)."""
+    dtype = torch_dtype(cfg.dtype)
+    new: Dict[str, list] = {"S": [], "tm_shift": [], "cm_shift": []}
+    x = layers.embed_lookup(params["embed"], tokens)
+    for j in range(cfg.num_layers):
+        lp = layers.layer_slice(params["blocks"], j)
+        c = {k: v[j] for k, v in cache.items()}
+        h = layers.layernorm(x, lp["ln1"]["scale"], lp["ln1"]["bias"])
+        tm_out, S = _time_mix(h, c["tm_shift"][:, None], c["S"], lp, cfg)
+        x = x + tm_out
+        h2 = layers.layernorm(x, lp["ln2"]["scale"], lp["ln2"]["bias"])
+        x = (x + _channel_mix(h2, c["cm_shift"][:, None], lp)).to(dtype)
+        new["S"].append(S)
+        new["tm_shift"].append(h[:, -1])
+        new["cm_shift"].append(h2[:, -1])
+    x = layers.apply_norm(x, params["final_norm"], cfg.norm)
+    logits = layers.unembed(x, params["embed"])
+    return logits, {k: torch.stack(v).to(cache[k].dtype)
+                    for k, v in new.items()}

@@ -82,13 +82,6 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return params
 
 
-def _layer(tree, j: int):
-    """Block ``j`` of layer-stacked params."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, j) for k, v in tree.items()}
-    return tree[j]
-
-
 # ---------------------------------------------------------------------------
 # forward pieces
 # ---------------------------------------------------------------------------
@@ -96,7 +89,7 @@ def _attn_scale(cfg: ModelConfig) -> float:
     return 1.0 / math.sqrt(cfg.head_dim)
 
 
-def _project_qkv(x, ap, cfg: ModelConfig):
+def project_qkv(x, ap, cfg: ModelConfig):
     B, S, _ = x.shape
     hd = cfg.head_dim
     Hp, Kp = cfg.padded_heads(1), cfg.replicated_kv_heads(1)
@@ -109,7 +102,7 @@ def _project_qkv(x, ap, cfg: ModelConfig):
 def _self_attention_full(x, ap, cfg: ModelConfig, spec: LayerSpec,
                          positions, chunk: int = 1024):
     """Full-sequence (prefill) self attention.  Returns (out, k, v)."""
-    q, k, v = _project_qkv(x, ap, cfg)
+    q, k, v = project_qkv(x, ap, cfg)
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
     if cfg.use_kernels:
@@ -137,7 +130,7 @@ def _self_attention_decode(x, ap, cfg: ModelConfig, spec: LayerSpec, pos,
     step's private cache copy, written IN PLACE (the caller cloned the
     cache, so the table columns it came from are never touched).
     pos: [B].  Returns out."""
-    q, k, v = _project_qkv(x, ap, cfg)
+    q, k, v = project_qkv(x, ap, cfg)
     q = layers.apply_rope(q, pos[:, None], cfg.rope_theta)
     k = layers.apply_rope(k, pos[:, None], cfg.rope_theta)
     W = kc.shape[1]
@@ -183,7 +176,7 @@ def forward(params, tokens, cfg: ModelConfig, *, build_cache: bool = False,
                             scale_by_dim=cfg.embedding_scale)
     caches: Dict[str, List[torch.Tensor]] = {}
     for j in range(n_blocks):
-        blk = _layer(params["blocks"], j)
+        blk = layers.layer_slice(params["blocks"], j)
         for i, spec in enumerate(specs):
             lp = blk[str(i)]
             h = layers.apply_norm(x, lp["ln1"], cfg.norm)
@@ -251,7 +244,7 @@ def decode_step(params, tokens, pos, cache, cfg: ModelConfig):
     x = layers.embed_lookup(params["embed"], tokens,
                             scale_by_dim=cfg.embedding_scale)
     for j in range(n_blocks):
-        blk = _layer(params["blocks"], j)
+        blk = layers.layer_slice(params["blocks"], j)
         for i, spec in enumerate(specs):
             lp = blk[str(i)]
             h = layers.apply_norm(x, lp["ln1"], cfg.norm)

@@ -22,6 +22,10 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_plain)
+from repro_torch.kernels.rglru_scan import rglru_scan_plain  # noqa: E402
+from repro_torch.kernels.wkv6 import wkv6_plain  # noqa: E402
+
+from repro_torch.models import rglru  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -187,5 +191,112 @@ def test_tiny_cascade_on_card_uses_kernels(dev, dtype):
             cfg.num_layers * dc.STEPS * runs
         got = [int(r.values[0]) for r in out.rows]
         assert got == dc.reference_decode(plain, params, toks.to(dev))
+    finally:
+        rt.stop()
+
+
+def _decay(shape, dtype, dev, seed):
+    a = np.random.default_rng(seed).standard_normal(shape)
+    a = 1.0 / (1.0 + np.exp(-a)) * 0.5 + 0.45          # in (0.45, 0.95)
+    return torch.tensor(a, dtype=torch.float32, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,hd", [
+    (1, 37, 3, 64),          # odd T (a ragged last chunk)
+    (2, 5, 2, 32),
+    (1, 20, 2, 100),         # head_dim not a power of two
+    (1, 16, 2, 128),         # the largest head_dim
+    (4, 256, 32, 64),        # rwkv6-1.6b prefill shape
+])
+def test_wkv6_kernel_matches_plain(dev, dtype, B, T, H, hd):
+    r, k, v = (_rand((B, T, H, hd), dtype, dev, i) for i in range(3))
+    w = _decay((B, T, H, hd), dtype, dev, 3)
+    u = _rand((H, hd), torch.float32, dev, 4)
+    n0 = kops.wkv6.launches
+    y, S = kops.wkv6(r, k, v, w, u, return_state=True)
+    y_only = kops.wkv6(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert kops.wkv6.launches == n0 + 2
+    want_y, want_S = wkv6_plain(r, k, v, w, u, return_state=True)
+    assert y.dtype == S.dtype == torch.float32
+    _close(y, want_y, dtype)
+    _close(S, want_S, dtype)
+    torch.testing.assert_close(y_only, y, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,T,R", [
+    (2, 37, 300),            # odd T and R
+    (3, 1, 129),
+    (4, 256, 2560),          # recurrentgemma-2b prefill shape
+])
+def test_rglru_scan_kernel_matches_plain(dev, dtype, with_h0, B, T, R):
+    a = _decay((B, T, R), dtype, dev, 0)
+    x = _rand((B, T, R), dtype, dev, 1)
+    h0 = _rand((B, R), torch.float32, dev, 2) if with_h0 else None
+    n0 = kops.rglru_scan.launches
+    got = kops.rglru_scan(a, x, h0)
+    torch.cuda.synchronize()
+    assert kops.rglru_scan.launches == n0 + 1
+    assert got.dtype == torch.float32
+    _close(got, rglru_scan_plain(a, x, h0), dtype)
+
+
+def test_recurrent_kernels_refuse_what_they_do_not_take(dev):
+    r = _rand((1, 4, 2, 130), torch.float32, dev, 0)       # hd 130
+    with pytest.raises(KernelError):
+        kops.wkv6(r, r, r, r, r[0, 0])
+    r = _rand((1, 4, 2, 32), torch.float32, dev, 0)
+    with pytest.raises(KernelError):                       # mixed dtypes
+        kops.wkv6(r, r.bfloat16(), r, r, r[0, 0])
+    a = _rand((2, 4, 8), torch.float32, dev, 1)
+    with pytest.raises(KernelError):                       # fp16
+        kops.rglru_scan(a.half(), a.half())
+    with pytest.raises(KernelError):                       # mixed devices
+        kops.rglru_scan(a, a.cpu())
+    with pytest.raises(KernelError):                       # bad h0
+        kops.rglru_scan(a, a, a[:, 0, :4])
+
+
+@pytest.mark.parametrize("arch,kernel,per_prefill", [
+    ("rwkv6-1.6b", "wkv6", lambda cfg: cfg.num_layers),
+    ("recurrentgemma-2b", "rglru_scan",
+     lambda cfg: rglru.layer_types(cfg).count("rec")),
+])
+def test_tiny_recurrent_cascade_on_card_uses_kernel(dev, arch, kernel,
+                                                    per_prefill):
+    """The compiled cascade of a tiny recurrent model at f32: its kernel
+    runs once per recurrent layer and prefill dispatch, the attention
+    kernels never, and the greedy tokens equal the plain model loop."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.examples import decode_cascade as dc
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_tiny_config(arch), dtype="float32",
+                              use_kernels=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    plain = build_model(dataclasses.replace(cfg, use_kernels=False))
+    toks = torch.randint(0, cfg.vocab_size, (3, 40), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    rt = dc.Runtime(n_cpu=1, n_gpu=1, net=dc.NetModel(scale=0.0))
+    try:
+        pre, dec = dc.build_ops(model, params, cache_len=48)
+        dep = dc.build(rt, pre, dec)
+        table = dc.Table([("tokens", torch.Tensor)],
+                         [(toks[i],) for i in range(3)])
+        counters = [getattr(kops, n) for n in (
+            kernel, "flash_attention", "decode_attention")]
+        n0 = [c.launches for c in counters]
+        out = dep.execute(table).result(300)
+        chain = dep.plan.ops[-1].op
+        runs = chain.batch_dispatches + chain.row_dispatches
+        got_n = [c.launches - n for c, n in zip(counters, n0)]
+        assert got_n == [per_prefill(cfg) * runs, 0, 0]
+        got = [int(r.values[0]) for r in out.rows]
+        assert got == dc.reference_decode(plain, params, toks.to(dev),
+                                          cache_len=48)
     finally:
         rt.stop()

@@ -207,7 +207,14 @@ def test_kernel_step_memoized_with_twin_and_batched_forms():
     with pytest.raises(ValueError):
         kops.kernel_step("flash_attention", block_q=128)  # no tile params
     with pytest.raises(ValueError):
-        kops.kernel_step("wkv6")                           # not ported yet
+        kops.kernel_step("wkv6", chunk=4)                  # no tile params
+    # a bound trailing arg: memoized per bound identity, not a column
+    u1, u2 = torch.zeros(2, 8), torch.zeros(2, 8)
+    w1 = kops.kernel_step("wkv6", bound={"u": u1})
+    assert kops.kernel_step("wkv6", bound={"u": u1}) is w1
+    assert kops.kernel_step("wkv6", bound={"u": u2}) is not w1
+    assert w1.__code__.co_varnames[:w1.__code__.co_argcount] == \
+        ("r", "k", "v", "w")
     # per row the step adds B=1; the batched form takes the stacked rows
     q, k = torch.from_numpy(_np((3, 2, 8, 32), 1)), \
         torch.from_numpy(_np((3, 1, 8, 32), 2))
