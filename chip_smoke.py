@@ -14,10 +14,14 @@ ignored):
    time, one PyTorch call's time where one computes the same function
    (``scaled_dot_product_attention`` for the attention kernels, timed
    only; none for the recurrences) and the least time the card could
-   take (the bound).  yi-9b: H=32, K=4, hd=128; decode B=4 over a
+   take (the bound).  For the attention kernels and SDPA also the
+   device work alone (``device_ms``, see ``time_ms``) and the host time
+   per call.  yi-9b: H=32, K=4, hd=128; decode B=4 over a
    1024-slot ring cache with empty -1 slots, flash B=4, S=256.  rwkv6-
    1.6b: wkv6 at r/k/v/w [4, 256, 32, 64].  recurrentgemma-2b:
-   rglru_scan at [4, 256, 2560].
+   rglru_scan at [4, 256, 2560].  Asserts that flash ran its tensor-core
+   (``wgmma``) instance in bf16 and its SIMT instance in f32, and prints
+   decode's split count.
 4. Paths: yi-9b (48 layers), rwkv6-1.6b (24) and recurrentgemma-2b (26)
    at full width and depth in bf16 with ``use_kernels=True``, random
    weights from a seeded generator, each a prefill + 8 decode
@@ -61,6 +65,7 @@ H100_BYTES_PER_S = 3.35e12           # HBM3, NVIDIA data sheet (SXM)
 H100_FLOPS = {"bfloat16": 989e12,    # dense tensor-core peak
               "float32": 67e12}      # f32 outside the tensor cores
 BF16_REL, F32_REL = 0.05, 1e-4       # the reference's kernel bars
+SPIN_CYCLES = 500_000                # ~0.3 ms at the H100's clocks
 KERNELS = ("decode_attention", "flash_attention", "wkv6", "rglru_scan")
 #: per path: arch, depth of the f32 token check, depth at which the bf16
 #: logits of the kernel path are held to the 0.05 bar (None: full).
@@ -98,10 +103,15 @@ def rel_err(got, want):
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-6))
 
 
-def time_ms(torch, fn, iters=30, warmup=3, flush=None):
-    """Mean device time of ``fn`` in ms over ``iters`` launches, each
-    timed with CUDA events after ``flush`` evicted the L2 cache (the main
-    path meets every layer's cache and weights cold)."""
+def time_ms(torch, fn, iters=30, warmup=3, flush=None, spin=False):
+    """Mean time of ``fn`` in ms over ``iters`` launches, each timed with
+    CUDA events after ``flush`` evicted the L2 cache (the main path meets
+    every layer's cache and weights cold).  The events bracket what the
+    card sees of one call: its kernels, and any gap while the host is
+    still enqueueing them (the kernel table's ``ms`` since it began).
+    With ``spin`` the device first spins for ``SPIN_CYCLES``, so the host
+    has enqueued all of ``fn``'s kernels when the start event fires: the
+    events then bracket the device's work only (``device_ms``)."""
     for _ in range(warmup):
         fn()
     total = 0.0
@@ -109,6 +119,8 @@ def time_ms(torch, fn, iters=30, warmup=3, flush=None):
     for _ in range(iters):
         if flush is not None:
             flush()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -119,6 +131,30 @@ def time_ms(torch, fn, iters=30, warmup=3, flush=None):
     for start, end in events:
         total += start.elapsed_time(end)
     return total / iters
+
+
+def spans(torch, fn, lib, flush):
+    """``fn``'s and the library call ``lib``'s times under both spans of
+    :func:`time_ms` and their host time per call (:func:`host_ms`)."""
+    return {"ms": time_ms(torch, fn, flush=flush),
+            "device_ms": time_ms(torch, fn, flush=flush, spin=True),
+            "library_ms": time_ms(torch, lib, flush=flush),
+            "library_device_ms": time_ms(torch, lib, flush=flush, spin=True),
+            "host": (host_ms(torch, fn), host_ms(torch, lib))}
+
+
+def host_ms(torch, fn, iters=30):
+    """Mean host time of one call of ``fn`` in ms: what it costs the
+    host to check the inputs and enqueue the work, with the device left
+    to catch up after the loop."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e3
 
 
 def phase_kernels(torch, dev, flush):
@@ -154,6 +190,10 @@ def phase_kernels(torch, dev, flush):
         check(bool(torch.isfinite(got).all()) and err < bar,
               f"decode_attention {dtype}: rel err {err} < {bar} "
               f"(max abs {abs_err})")
+        splits = kops.decode_attention.last_splits
+        print(f"  decode_attention {dtype}: {splits} splits of the "
+              f"{W}-slot ring per (b, kv head), {B * K * splits} blocks",
+              flush=True)
         if dtype != torch.bfloat16:
             continue
         valid = int(((kpos >= 0) & (kpos <= qpos[:, None])).sum())
@@ -169,15 +209,14 @@ def phase_kernels(torch, dev, flush):
             "source": "src/repro_torch/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:88",
             "max_abs_err": abs_err,
-            "ms": time_ms(torch, lambda: kops.decode_attention(
-                q, kc, vc, kpos, qpos), flush=flush),
             "plain_ms": time_ms(torch, lambda: decode_attention_plain(
                 q, kc, vc, kpos, qpos), flush=flush),
             **_bound(nbytes, flops, "bfloat16"),
-            "library_ms": time_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    qs, kc, vc, attn_mask=mask, enable_gqa=True),
-                flush=flush),
+            **spans(torch, lambda: kops.decode_attention(
+                q, kc, vc, kpos, qpos),
+                lambda: F.scaled_dot_product_attention(
+                    qs, kc, vc, attn_mask=mask, enable_gqa=True), flush),
+            "instance": f"split-S x{splits}",
         }
 
     # -- flash attention, the prefill ----------------------------------------
@@ -193,6 +232,10 @@ def phase_kernels(torch, dev, flush):
         check(bool(torch.isfinite(got).all()) and err < bar,
               f"flash_attention {dtype}: rel err {err} < {bar} "
               f"(max abs {abs_err})")
+        instance = kops.flash_attention.last_instance
+        want_instance = "wgmma" if dtype == torch.bfloat16 else "simt"
+        check(instance == want_instance, f"flash_attention {dtype} at "
+              f"yi-9b's prefill shape ran the {instance} instance")
         if dtype != torch.bfloat16:
             continue
         el = q.element_size()
@@ -204,22 +247,31 @@ def phase_kernels(torch, dev, flush):
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:95",
             "max_abs_err": abs_err,
-            "ms": time_ms(torch, lambda: kops.flash_attention(q, k, v),
-                          flush=flush),
             "plain_ms": time_ms(torch, lambda: flash_attention_plain(
                 q, k, v), flush=flush),
             **_bound(nbytes, flops, "bfloat16"),
-            "library_ms": time_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True), flush=flush),
+            **spans(torch, lambda: kops.flash_attention(q, k, v),
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True), flush),
         }
+        # the instance of the timed launches (the choice depends only on
+        # dtype and head_dim, so the last one stands for all)
+        results["flash_attention"]["instance"] = \
+            kops.flash_attention.last_instance
     results.update(phase_recurrent_kernels(torch, dev, g, flush))
     for r in results.values():
         lib = r["library_ms"]
-        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
+        print(f"  {r['name']}"
+              f"{' (' + r['instance'] + ')' if 'instance' in r else ''}: "
+              f"kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library "
               f"{'none' if lib is None else f'{lib:.4f} ms'}, "
               f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})", flush=True)
+        if "host" in r:
+            print(f"    device work only: kernel {r['device_ms']:.4f} ms, "
+                  f"library {r['library_device_ms']:.4f} ms; host time "
+                  f"per call: kernel {r['host'][0]:.4f} ms, library "
+                  f"{r['host'][1]:.4f} ms", flush=True)
     return results
 
 
@@ -588,8 +640,9 @@ def main() -> int:
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"]
-    line = {"kernels": [{k: kernels[n][k] for k in keys}
-                        for n in KERNELS]}
+    extra = ["device_ms", "library_device_ms", "instance"]
+    line = {"kernels": [{k: kernels[n][k] for k in keys + extra
+                         if k in kernels[n]} for n in KERNELS]}
     print(smi, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace rt {
 
 // Masked logits take this finite value (never -inf), as in the reference
@@ -39,6 +41,38 @@ __device__ __forceinline__ void load_f(const T* p, float* dst) {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) dst[i] = to_f(e[i]);
   }
+}
+
+// The dynamic shared memory one kernel has been opted in to, per device
+// (the attribute is per kernel and device).  Each launch site keeps one as
+// a function-local static beside its kernel.
+struct SmemOptIn {
+  static constexpr int kDevices = 64;
+  std::atomic<int> bytes[kDevices];
+};
+
+// Opt `kernel` in to `bytes` of dynamic shared memory on the current
+// device when it needs more than the default 48 KB and is not opted in to
+// that much there yet; the opt-in then holds for every later launch.
+inline cudaError_t opt_in_smem(SmemOptIn& done, const void* kernel,
+                               size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool known = dev >= 0 && dev < SmemOptIn::kDevices;
+  if (known && done.bytes[dev].load(std::memory_order_relaxed) >= (int)bytes)
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess && known) {
+    int seen = done.bytes[dev].load(std::memory_order_relaxed);
+    while (seen < (int)bytes &&
+           !done.bytes[dev].compare_exchange_weak(seen, (int)bytes)) {
+    }
+  }
+  return err;
 }
 
 }  // namespace rt

@@ -5,8 +5,9 @@ Builds the same full-width bf16 cascade as ``chip_smoke.py`` for one arch
 steps, 4 prompts x 256 tokens, cache 1024, ``use_kernels=True``), warms
 it up, then serves one request under
 ``torch.profiler`` and prints: the host wall time of the request, the
-device time summed per kernel name (top rows), the device busy share of
-the request's wall time, and the number of kernel launches.
+device time summed per kernel name (top rows, then every row of the
+port's own kernels), the device busy share of the request's wall time,
+and the number of kernel launches.
 
     PYTHONPATH=src python -m repro_torch.examples.profile_cascade \
         [--arch yi-9b | rwkv6-1.6b | recurrentgemma-2b]
@@ -29,6 +30,10 @@ from repro_torch.models import build_model
 
 STEPS = 8     # decode steps per request, as in chip_smoke.py
 TOP = 12      # kernel names printed
+#: name fragments of the port's hand-written kernels (csrc/*.cu)
+PORT_KERNELS = ("flash_wgmma_kernel", "flash_attention_kernel",
+                "decode_split_kernel", "decode_combine_kernel",
+                "wkv6", "rglru_scan")
 
 
 def _merged_busy_us(intervals):
@@ -100,12 +105,19 @@ def main(argv=None):
     for name, (us, n) in rows[:TOP]:
         print(f"  {us / 1e3:10.3f} ms  {us / max(dev_us, 1e-9):6.1%}  "
               f"x{n:<6d} {name[:90]}")
+    # the port's own kernels (csrc/), whatever their rank
+    ours = [(name, v) for name, v in rows if any(
+        k in name for k in PORT_KERNELS)]
+    for name, (us, n) in ours:
+        print(f"  port kernel {us / 1e3:10.3f} ms  x{n:<6d} {name[:70]}")
     print(json.dumps({"wall_ms": wall_s * 1e3, "device_ms": dev_us / 1e3,
                       "busy_ms": busy_us / 1e3,
                       "busy_share": busy_us / 1e3 / (wall_s * 1e3),
                       "device_events": len(events),
                       "top": [{"name": n, "ms": v[0] / 1e3, "count": v[1]}
-                              for n, v in rows[:TOP]]}))
+                              for n, v in rows[:TOP]],
+                      "port_kernels": [{"name": n, "ms": v[0] / 1e3,
+                                        "count": v[1]} for n, v in ours]}))
     if args.trace:
         prof.export_chrome_trace(args.trace)
 

@@ -44,13 +44,13 @@ _c_i64p = ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
     "decode_attention": (
         "decode_attention_launch",
-        [_c_ptr] * 6 + [_c_int] * 6 + [_c_i64p, _c_float, _c_float,
+        [_c_ptr] * 8 + [_c_int] * 7 + [_c_i64p, _c_float, _c_float,
                                        _c_int, _c_int, _c_int, _c_ptr]),
     "flash_attention": (
         "flash_attention_launch",
         [_c_ptr] * 4 + [_c_int] * 5 + [_c_i64p, _c_float, _c_float,
                                        _c_int, _c_int, _c_int, _c_int,
-                                       _c_ptr]),
+                                       _c_int, _c_ptr]),
     "wkv6": (
         "wkv6_launch",
         [_c_ptr] * 7 + [_c_int] * 5 + [_c_ptr]),

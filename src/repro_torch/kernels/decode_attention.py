@@ -7,12 +7,18 @@ launches the hand-written CUDA kernel ``csrc/decode_attention.cu`` or
 raises :class:`~repro_torch.kernels.build.KernelError`.
 
 The kernel is memory-bound: its least time on an H100 is the K and V
-bytes it must read over 3.35 TB/s.  It reads the cache through the
-caller's strides, so the model's transposed ``[B, W, K, hd]`` ring cache
-is never copied (see the source note in the ``.cu`` file for the design).
+bytes of the valid slots over 3.35 TB/s.  It splits the ring cache over
+``splits`` blocks per (b, kv head) (flash-decoding, :func:`split_plan`),
+skips tiles of slots that hold no valid key, and merges the splits'
+partials in a second kernel behind the same C entry point; the number
+of splits of the last launch is ``decode_attention.last_splits``.  It
+reads the cache through the caller's strides, so the model's transposed
+``[B, W, K, hd]`` ring cache is never copied (see the source note in the
+``.cu`` file for the design).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -25,11 +31,24 @@ from repro_torch.kernels import build, ref
 #: V).  CPU tensors run it; the kernel is held to it.
 decode_attention_plain = ref.decode_attention_ref
 
-def _tile_rows(hd: int) -> int:
-    """Cache slots staged per tile: K and V tiles in f32 plus positions
-    stay under 40 KB of shared memory (no opt-in above 48 KB needed)."""
-    rows = max(1, min(64, 40960 // (8 * hd + 4)))
-    return 1 << (rows.bit_length() - 1)
+#: cache slots per tile of the split kernel (``kTS`` in the ``.cu`` file)
+TILE = 32
+#: blocks to aim for: about four per SM of an H100 (132 SMs), all
+#: resident at once; at the served shape every split is one tile, so a
+#: block's path is its set-up and one tile
+TARGET_BLOCKS = 4 * 132
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(B: int, K: int, S: int):
+    """(splits, chunk): each of ``splits`` blocks per (b, kv head) owns
+    ``chunk`` consecutive ring slots, a multiple of :data:`TILE`, so that
+    B * K * splits blocks cover the card about four times.  The last
+    split may own fewer slots."""
+    tiles = -(-S // TILE)
+    want = max(1, min(tiles, -(-TARGET_BLOCKS // (B * K))))
+    chunk = -(-tiles // want) * TILE
+    return -(-S // chunk), chunk
 
 
 def _aligned(t: torch.Tensor, vec: int) -> bool:
@@ -72,7 +91,8 @@ def decode_attention(q, k_cache, v_cache, k_positions, q_position, *,
     q_position: [B] int32.  Returns [B, H, hd] in q's dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in ``decode_attention.launches``) or raise KernelError."""
+    (two kernels, counted as one launch in ``decode_attention.launches``)
+    or raise KernelError."""
     args = (q, k_cache, v_cache, k_positions, q_position)
     dev = build.card_of("decode_attention", args)
     if dev is None:
@@ -85,16 +105,25 @@ def decode_attention(q, k_cache, v_cache, k_positions, q_position, *,
     vec = 16 // q.element_size()
     aligned = int(_aligned(k_cache, vec) and _aligned(v_cache, vec))
     out = torch.empty((B, H, hd), dtype=q.dtype, device=dev)
+    splits, chunk = split_plan(B, K, S)
+    # f32 scratch for the splits' partials: (m, l) [B, H, splits, 2],
+    # then acc [B, H, splits, hd]
+    part = torch.empty(B * H * splits * (2 + hd), dtype=torch.float32,
+                       device=dev)
+    part_ml = part.data_ptr()
     strides = build.strides_arg([
         q.stride(0), q.stride(1),
         *k_cache.stride()[:3], *v_cache.stride()[:3],
         k_positions.stride(0), k_positions.stride(1), q_position.stride(0)])
     build.launch(decode_attention, dev, q.data_ptr(), k_cache.data_ptr(),
                  v_cache.data_ptr(), k_positions.data_ptr(),
-                 q_position.data_ptr(), out.data_ptr(), B, H, K, S, hd,
-                 _tile_rows(hd), strides, float(scale), float(softcap),
-                 int(window), build.DTYPE_CODE[q.dtype], aligned)
+                 q_position.data_ptr(), out.data_ptr(), part_ml,
+                 part_ml + B * H * splits * 2 * 4, B, H, K, S, hd, splits,
+                 chunk, strides, float(scale), float(softcap), int(window),
+                 build.DTYPE_CODE[q.dtype], aligned)
+    decode_attention.last_splits = splits
     return out
 
 
 decode_attention.launches = 0
+decode_attention.last_splits = None

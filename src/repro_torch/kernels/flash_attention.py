@@ -7,6 +7,13 @@ device: on the CPU it runs :func:`flash_attention_plain`; on the card it
 launches the hand-written CUDA kernel ``csrc/flash_attention.cu`` or
 raises :class:`~repro_torch.kernels.build.KernelError`.
 
+The C entry point holds two hand-written instances, picked by
+:func:`instance_for` from the dtype and head_dim, never by catching a
+failure: ``"wgmma"`` (bf16 at head_dim 64 or 128: TMA loads, tensor-core
+products, kv tiles that the masks empty skipped) and ``"simt"`` (f32 and
+every other head_dim: scalar f32 FMAs).  ``flash_attention.last_instance``
+names the instance of the last launch.
+
 The least time of the work on an H100 is the larger of its operations
 (about 2 * B * H * S^2 * hd for the causal products, over 989 TFLOP/s)
 and its bytes (q, k, v and out once, over 3.35 TB/s).  The kernel
@@ -27,13 +34,29 @@ from repro_torch.kernels import build, ref
 #: kernel is held to it.
 flash_attention_plain = ref.attention_ref
 
+#: the instances behind the C entry point, by their ``instance`` code
+INSTANCES = ("simt", "wgmma")
+#: query rows per block of the tensor-core instance (``kBQ`` in its
+#: namespace of the ``.cu`` file)
+WGMMA_TILE = 64
+
+
 def _aligned(t: torch.Tensor, vec: int) -> bool:
     return (t.data_ptr() % 16 == 0
             and all(s % vec == 0 for s in t.stride()[:-1]))
 
 
-def check_inputs(q, k, v) -> None:
-    """What the CUDA kernel takes; raises KernelError on anything else."""
+def instance_for(q: torch.Tensor) -> str:
+    """The kernel instance that serves ``q``'s dtype and head_dim."""
+    if q.dtype == torch.bfloat16 and q.shape[-1] in (64, 128):
+        return "wgmma"
+    return "simt"
+
+
+def check_inputs(q, k, v):
+    """What the CUDA kernel takes; raises KernelError on anything else.
+    Returns (instance, aligned): the instance that serves the inputs and
+    whether every row start of q, k and v is 16-byte aligned."""
     err = build.KernelError
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise err(f"flash_attention: bad ranks/shapes q{tuple(q.shape)} "
@@ -46,15 +69,25 @@ def check_inputs(q, k, v) -> None:
     if hd % 8 or hd > 256:
         raise err(f"flash_attention: head_dim {hd} must be a multiple of "
                   "8 up to 256")
-    if B * H > 65535:
-        raise err(f"flash_attention: B*H={B * H} exceeds the grid's y "
-                  "limit of 65535")
     if q.dtype not in build.DTYPE_CODE or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise err(f"flash_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype};"
                   " needs float32 or bfloat16 throughout")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise err("flash_attention: head_dim must be the contiguous dim")
+    instance = instance_for(q)
+    aligned = all(_aligned(t, 16 // t.element_size()) for t in (q, k, v))
+    # grid (q tiles, B*H) for the SIMT instance, (B*H, q tiles) for the
+    # tensor-core one; y is limited to 65535
+    grid_y = B * H if instance == "simt" else -(-S // WGMMA_TILE)
+    if grid_y > 65535:
+        raise err(f"flash_attention: the {instance} instance's grid y "
+                  f"({grid_y}) exceeds its limit of 65535")
+    if instance == "wgmma" and not aligned:
+        raise err("flash_attention: the tensor-core instance reads q, k "
+                  "and v through TMA, which needs 16-byte-aligned bases "
+                  "and strides in multiples of 16 bytes")
+    return instance, aligned
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -63,25 +96,27 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     with a contiguous last dim).  Returns [B, H, S, hd] in q's dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in ``flash_attention.launches``) or raise KernelError."""
+    (counted in ``flash_attention.launches``; the instance that ran is
+    ``flash_attention.last_instance``) or raise KernelError."""
     dev = build.card_of("flash_attention", (q, k, v))
     if dev is None:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale)
-    check_inputs(q, k, v)
+    instance, aligned = check_inputs(q, k, v)
     B, H, S, hd = q.shape
     K = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    vec = 16 // q.element_size()
-    aligned = int(all(_aligned(t, vec) for t in (q, k, v)))
     out = torch.empty((B, H, S, hd), dtype=q.dtype, device=dev)
     strides = build.strides_arg([*q.stride()[:3], *k.stride()[:3],
                                  *v.stride()[:3]])
     build.launch(flash_attention, dev, q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), out.data_ptr(), B, H, K, S, hd, strides,
                  float(scale), float(softcap), int(bool(causal)),
-                 int(window), build.DTYPE_CODE[q.dtype], aligned)
+                 int(window), build.DTYPE_CODE[q.dtype], int(aligned),
+                 INSTANCES.index(instance))
+    flash_attention.last_instance = instance
     return out
 
 
 flash_attention.launches = 0
+flash_attention.last_instance = None

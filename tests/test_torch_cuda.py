@@ -136,6 +136,121 @@ def test_decode_kernel_empty_cache_is_mean_of_v(dev):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("hd,instance", [(64, "wgmma"), (128, "wgmma"),
+                                         (256, "simt")])
+def test_flash_bf16_instance_by_head_dim(dev, hd, instance):
+    B, H, K, S = 2, 4, 2, 192
+    q = _rand((B, H, S, hd), torch.bfloat16, dev, 20)
+    k = _rand((B, K, S, hd), torch.bfloat16, dev, 21)
+    v = _rand((B, K, S, hd), torch.bfloat16, dev, 22)
+    for window in (0, 70):
+        got = kops.flash_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        assert kops.flash_attention.last_instance == instance
+        _close(got, flash_attention_plain(q, k, v, window=window),
+               torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype,instance", [(torch.bfloat16, "wgmma"),
+                                            (torch.float32, "simt")])
+def test_flash_yi9b_prefill_instance(dev, dtype, instance):
+    """yi-9b's prefill ([B, S, H, hd] views, H=32, K=4, hd=128): bf16 on
+    the tensor-core instance through TMA, f32 on the SIMT instance."""
+    B, S, H, K, hd = 4, 256, 32, 4, 128
+    q = _rand((B, S, H, hd), dtype, dev, 23).transpose(1, 2)
+    k = _rand((B, S, K, hd), dtype, dev, 24).transpose(1, 2)
+    v = _rand((B, S, K, hd), dtype, dev, 25).transpose(1, 2)
+    n0 = kops.flash_attention.launches
+    got = kops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert kops.flash_attention.launches == n0 + 1
+    assert kops.flash_attention.last_instance == instance
+    _close(got, flash_attention_plain(q, k, v), dtype)
+
+
+def test_flash_tensor_core_refuses_misaligned_views(dev):
+    """TMA needs 16-byte-aligned bases and strides: a view that starts
+    one element in, or whose row stride is not a multiple of 16 bytes,
+    raises KernelError instead of launching."""
+    B, H, S, hd = 1, 2, 64, 64
+    flat = torch.zeros(B * H * S * hd + 1, dtype=torch.bfloat16, device=dev)
+    shifted = flat[1:].view(B, H, S, hd)
+    good = _rand((B, H, S, hd), torch.bfloat16, dev, 26)
+    with pytest.raises(KernelError):
+        kops.flash_attention(shifted, good, good)
+    wide = _rand((B, H, S, hd + 4), torch.bfloat16, dev, 27)[..., :hd]
+    with pytest.raises(KernelError):                 # row stride 136 bytes
+        kops.flash_attention(good, wide, good)
+    # the SIMT instance takes a misaligned f32 view (element loads)
+    flat32 = _rand((B * H * S * hd + 1,), torch.float32, dev, 28)
+    q32 = flat32[1:].view(B, H, S, hd)
+    got = kops.flash_attention(q32, good.float(), good.float())
+    assert kops.flash_attention.last_instance == "simt"
+    _close(got, flash_attention_plain(q32, good.float(), good.float()),
+           torch.float32)
+
+
+def test_flash_tensor_core_takes_more_than_65535_heads(dev):
+    """B*H lies on grid x of the tensor-core instance, so more than 65535
+    (b, head) pairs launch; every head here shares one kv head, so a
+    slice of heads is held to the plain version."""
+    B, H, S, hd = 1, 65536 + 64, 64, 64
+    q = _rand((B, 64, S, hd), torch.bfloat16, dev, 29).repeat(
+        1, H // 64, 1, 1)
+    k = _rand((B, 1, S, hd), torch.bfloat16, dev, 30)
+    v = _rand((B, 1, S, hd), torch.bfloat16, dev, 31)
+    got = kops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert kops.flash_attention.last_instance == "wgmma"
+    for h0 in (0, 65536):
+        _close(got[:, h0:h0 + 64],
+               flash_attention_plain(q[:, h0:h0 + 64], k, v), torch.bfloat16)
+
+
+def _ring_positions(B, W, filled, dev):
+    """kpos/qpos of a ring that held positions 0..n-1 at slot pos % W."""
+    kpos = torch.full((B, W), -1, dtype=torch.int32)
+    for b, n in enumerate(filled):
+        pos = torch.arange(n, dtype=torch.int32)
+        kpos[b, pos % W] = pos
+    qpos = torch.tensor([max(n - 1, 0) for n in filled], dtype=torch.int32)
+    return kpos.to(dev), qpos.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("filled", [
+    [264, 264, 257, 264],        # the served path: 264 of 1024 slots
+    [1300, 1100, 2000, 700],     # three rings that wrapped
+])
+def test_decode_split_kernel_on_the_ring(dev, dtype, filled):
+    B, H, K, W, hd = 4, 32, 4, 1024, 128
+    q = _rand((B, H, hd), dtype, dev, 30)
+    kc = _rand((B, W, K, hd), dtype, dev, 31).transpose(1, 2)
+    vc = _rand((B, W, K, hd), dtype, dev, 32).transpose(1, 2)
+    kpos, qpos = _ring_positions(B, W, filled, dev)
+    got = kops.decode_attention(q, kc, vc, kpos, qpos)
+    torch.cuda.synchronize()
+    assert kops.decode_attention.last_splits == 32
+    _close(got, decode_attention_plain(q, kc, vc, kpos, qpos), dtype)
+
+
+def test_decode_window_without_valid_key_is_mean_of_v(dev):
+    """Row 0's keys all lie outside the window, so it has no valid slot
+    and nothing may be skipped: the reference averages V over all slots.
+    Row 1 keeps valid keys, and its empty tiles are skipped."""
+    B, H, K, W, hd = 2, 8, 2, 512, 64
+    q = _rand((B, H, hd), torch.float32, dev, 33)
+    kc = _rand((B, K, W, hd), torch.float32, dev, 34)
+    vc = _rand((B, K, W, hd), torch.float32, dev, 35)
+    kpos, _ = _ring_positions(B, W, [40, 300], dev)
+    qpos = torch.tensor([400, 299], dtype=torch.int32, device=dev)
+    got = kops.decode_attention(q, kc, vc, kpos, qpos, window=16)
+    want = decode_attention_plain(q, kc, vc, kpos, qpos, window=16)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    mean_v = vc.mean(dim=2).repeat_interleave(H // K, dim=1)
+    torch.testing.assert_close(got[0], mean_v[0], atol=1e-5, rtol=1e-5)
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     q = _rand((1, 4, 16, 12), torch.float32, dev, 0)     # hd 12
     with pytest.raises(KernelError):

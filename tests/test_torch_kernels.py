@@ -18,8 +18,9 @@ from repro.kernels import ops as jops, ref as jref  # noqa: E402
 from repro_torch.kernels import ops as kops, ref as tref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain)
+from repro_torch.kernels.build import KernelError  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_plain)
+    check_inputs as flash_check_inputs, flash_attention_plain)
 
 # the reference oracles, jitted: one compile per shape instead of one per
 # primitive (same math)
@@ -254,3 +255,24 @@ def test_tile_rules_state_the_cuda_constraints():
     # any group size: granite-34b's 48 q heads on one kv head
     assert dec.check_tiles({"q": (4, 48, 128), "k_cache": (4, 1, 9, 128)}
                            ) == []
+
+
+@pytest.mark.parametrize("dtype,hd,instance,ok", [
+    (torch.bfloat16, 128, "wgmma", True),     # B*H on grid x
+    (torch.bfloat16, 96, "simt", False),      # B*H on grid y
+    (torch.float32, 128, "simt", False)])
+def test_flash_grid_limit_follows_the_instance(dtype, hd, instance, ok):
+    """The SIMT instance puts B*H on grid y (at most 65535); the
+    tensor-core instance puts it on grid x and its query tiles on y, so
+    it takes more heads.  The check picks the instance and the alignment
+    once and returns them (zero-stride views: no memory)."""
+    B, H, S = 1, 65536 + 64, 64
+    q = torch.zeros((1, 1, 1, hd), dtype=dtype).expand(B, H, S, hd)
+    k = torch.zeros((1, 1, 1, hd), dtype=dtype).expand(B, 1, S, hd)
+    if ok:
+        assert flash_check_inputs(q, k, k) == (instance, True)
+    else:
+        with pytest.raises(KernelError, match=f"{instance} instance's grid"):
+            flash_check_inputs(q, k, k)
+    small = q[:, :64]
+    assert flash_check_inputs(small, k, k) == (instance, True)
