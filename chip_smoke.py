@@ -14,14 +14,17 @@ ignored):
    time, one PyTorch call's time where one computes the same function
    (``scaled_dot_product_attention`` for the attention kernels, timed
    only; none for the recurrences) and the least time the card could
-   take (the bound).  For the attention kernels and SDPA also the
-   device work alone (``device_ms``, see ``time_ms``) and the host time
-   per call.  yi-9b: H=32, K=4, hd=128; decode B=4 over a
+   take (the bound).  For all four kernels (and SDPA) also the device
+   work alone (``device_ms``, see ``time_ms``) and the host time per
+   call.  yi-9b: H=32, K=4, hd=128; decode B=4 over a
    1024-slot ring cache with empty -1 slots, flash B=4, S=256.  rwkv6-
    1.6b: wkv6 at r/k/v/w [4, 256, 32, 64].  recurrentgemma-2b:
    rglru_scan at [4, 256, 2560].  Asserts that flash ran its tensor-core
-   (``wgmma``) instance in bf16 and its SIMT instance in f32, and prints
-   decode's split count.
+   (``wgmma``) instance in bf16 and its SIMT instance in f32, that the
+   recurrences ran their split instances at their f32 path shapes (wkv6:
+   tiles of 4 x 4 of S, 16 lanes a column group, cp.async staging;
+   rglru_scan: clusters of 2 blocks of 4 warps along T, staged), and
+   prints decode's split count.
 4. Paths: yi-9b (48 layers), rwkv6-1.6b (24) and recurrentgemma-2b (26)
    at full width and depth in bf16 with ``use_kernels=True``, random
    weights from a seeded generator, each a prefill + 8 decode
@@ -135,12 +138,17 @@ def time_ms(torch, fn, iters=30, warmup=3, flush=None, spin=False):
 
 def spans(torch, fn, lib, flush):
     """``fn``'s and the library call ``lib``'s times under both spans of
-    :func:`time_ms` and their host time per call (:func:`host_ms`)."""
-    return {"ms": time_ms(torch, fn, flush=flush),
-            "device_ms": time_ms(torch, fn, flush=flush, spin=True),
-            "library_ms": time_ms(torch, lib, flush=flush),
-            "library_device_ms": time_ms(torch, lib, flush=flush, spin=True),
-            "host": (host_ms(torch, fn), host_ms(torch, lib))}
+    :func:`time_ms` and their host time per call (:func:`host_ms`);
+    ``lib`` None (no PyTorch call computes the function) times none."""
+    out = {"ms": time_ms(torch, fn, flush=flush),
+           "device_ms": time_ms(torch, fn, flush=flush, spin=True),
+           "library_ms": None, "host": (host_ms(torch, fn), None)}
+    if lib is not None:
+        out.update(library_ms=time_ms(torch, lib, flush=flush),
+                   library_device_ms=time_ms(torch, lib, flush=flush,
+                                             spin=True),
+                   host=(out["host"][0], host_ms(torch, lib)))
+    return out
 
 
 def host_ms(torch, fn, iters=30):
@@ -267,11 +275,13 @@ def phase_kernels(torch, dev, flush):
               f"{r['plain_ms']:.4f} ms, library "
               f"{'none' if lib is None else f'{lib:.4f} ms'}, "
               f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})", flush=True)
-        if "host" in r:
-            print(f"    device work only: kernel {r['device_ms']:.4f} ms, "
-                  f"library {r['library_device_ms']:.4f} ms; host time "
-                  f"per call: kernel {r['host'][0]:.4f} ms, library "
-                  f"{r['host'][1]:.4f} ms", flush=True)
+        lib_dev, lib_host = "", ""
+        if lib is not None:
+            lib_dev = f", library {r['library_device_ms']:.4f} ms"
+            lib_host = f", library {r['host'][1]:.4f} ms"
+        print(f"    device work only: kernel {r['device_ms']:.4f} ms"
+              f"{lib_dev}; host time per call: kernel {r['host'][0]:.4f} "
+              f"ms{lib_host}", flush=True)
     return results
 
 
@@ -312,6 +322,10 @@ def phase_recurrent_kernels(torch, dev, g, flush):
               f"wkv6 {dtype}: rel err {err} < {bar} (max abs {abs_err})")
         if dtype != torch.float32:     # the path feeds it f32
             continue
+        instance = kops.wkv6.last_instance
+        check(instance == "16 lanes of 4 rows x 4 columns, cp.async "
+              "staging",
+              f"wkv6 at rwkv6-1.6b's prefill shape ran {instance!r}")
         el = r.element_size()
         nbytes = (4 * r.numel() * el + u.numel() * 4     # r, k, v, w, u
                   + y.numel() * 4 + S.numel() * 4)       # y, final S
@@ -323,12 +337,12 @@ def phase_recurrent_kernels(torch, dev, g, flush):
             "source": "src/repro_torch/csrc/wkv6.cu",
             "replaces": "src/repro/kernels/wkv6.py:59",
             "max_abs_err": abs_err,
-            "ms": time_ms(torch, lambda: kops.wkv6(
-                r, k, v, w, u, return_state=True), flush=flush),
             "plain_ms": time_ms(torch, lambda: wkv6_plain(
                 r, k, v, w, u, return_state=True), iters=3, flush=flush),
             **_bound(nbytes, flops, "float32"),
-            "library_ms": None,
+            **spans(torch, lambda: kops.wkv6(
+                r, k, v, w, u, return_state=True), None, flush),
+            "instance": instance,
         }
 
     # -- rglru_scan at a, x [B, T, R], zero initial state ------------------
@@ -347,6 +361,10 @@ def phase_recurrent_kernels(torch, dev, g, flush):
               f"(max abs {abs_err})")
         if dtype != torch.float32:     # the path feeds it f32
             continue
+        instance = kops.rglru_scan.last_instance
+        check(instance == "cluster 2 x 4 warps, staged",
+              f"rglru_scan at recurrentgemma-2b's prefill shape ran "
+              f"{instance!r}")
         nbytes = 2 * a.numel() * a.element_size() + got.numel() * 4
         flops = 2 * a.numel()
         results["rglru_scan"] = {
@@ -354,12 +372,11 @@ def phase_recurrent_kernels(torch, dev, g, flush):
             "source": "src/repro_torch/csrc/rglru_scan.cu",
             "replaces": "src/repro/kernels/rglru_scan.py:51",
             "max_abs_err": abs_err,
-            "ms": time_ms(torch, lambda: kops.rglru_scan(a, x),
-                          flush=flush),
             "plain_ms": time_ms(torch, lambda: rglru_scan_plain(a, x),
                                 iters=5, flush=flush),
             **_bound(nbytes, flops, "float32"),
-            "library_ms": None,
+            **spans(torch, lambda: kops.rglru_scan(a, x), None, flush),
+            "instance": instance,
         }
     return results
 

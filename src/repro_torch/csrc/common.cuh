@@ -1,4 +1,4 @@
-// Helpers shared by the port's attention kernels.
+// Helpers shared by the port's kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -41,6 +41,30 @@ __device__ __forceinline__ void load_f(const T* p, float* dst) {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) dst[i] = to_f(e[i]);
   }
+}
+
+// The shared-memory address of a generic pointer into shared memory.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of 16 bytes from device memory into shared memory; both
+// addresses must be 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most N of this thread's cp.async groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // The dynamic shared memory one kernel has been opted in to, per device

@@ -50,32 +50,17 @@ namespace {
 constexpr int kTS = 32;          // cache slots per tile: one per lane
 constexpr int kMaxPerLane = 8;   // head_dim / 32 <= 8
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // 16 bytes from device memory into shared memory: cp.async when the
 // source is 16-byte aligned, else element by element.
 template <typename T, bool ASYNC>
 __device__ __forceinline__ void copy16(uint8_t* dst, const T* src) {
   if constexpr (ASYNC) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src)
-                 : "memory");
+    rt::cp_async16(dst, src);
   } else {
     T* d = reinterpret_cast<T*>(dst);
 #pragma unroll
     for (int i = 0; i < 16 / (int)sizeof(T); ++i) d[i] = src[i];
   }
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // 16 bytes of shared memory as floats
@@ -152,7 +137,7 @@ __device__ __forceinline__ void stage_tile(const T* kb, const T* vb,
     copy16<T, ASYNC>(dv + r * row_bytes + c * (int)sizeof(T),
                      vb + (s0 + r) * v_ss + c);
   }
-  cp_commit();
+  rt::cp_commit();
 }
 
 // HPW: query heads per warp.  ASYNC: K and V rows are 16-byte aligned.
@@ -254,9 +239,9 @@ __global__ void __launch_bounds__(256, 1) decode_split_kernel(
       stage_tile<T, ASYNC>(kb, vb, k_ss, v_ss, s_begin + tn * kTS, s_end,
                            hd, sk + (st ^ 1) * kTS * row_bytes,
                            sv + (st ^ 1) * kTS * row_bytes, row_bytes);
-      cp_wait<1>();
+      rt::cp_wait<1>();
     } else {
-      cp_wait<0>();
+      rt::cp_wait<0>();
     }
     __syncthreads();   // tile t is in shared memory for every warp
 

@@ -53,10 +53,10 @@ SIGNATURES = {
                                        _c_int, _c_ptr]),
     "wkv6": (
         "wkv6_launch",
-        [_c_ptr] * 7 + [_c_int] * 5 + [_c_ptr]),
+        [_c_ptr] * 7 + [_c_int] * 6 + [_c_ptr]),
     "rglru_scan": (
         "rglru_scan_launch",
-        [_c_ptr] * 4 + [_c_int] * 4 + [_c_ptr]),
+        [_c_ptr] * 4 + [_c_int] * 7 + [_c_ptr]),
 }
 
 

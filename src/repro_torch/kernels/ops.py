@@ -121,7 +121,7 @@ _TILE_RULES: Dict[str, Tuple[Tuple[str, Tuple[str, ...], Callable], ...]] = {
          lambda q, k: q[-2] % k[-3] == 0),
     ),
     "wkv6": (
-        ("head_dim up to 128 (a column of S per thread)", ("r",),
+        ("head_dim up to 128 (a column of S in one warp)", ("r",),
          lambda r: r[-1] <= 128),
         ("r, k, v, w of one shape", ("r", "k", "v", "w"),
          lambda r, k, v, w: r == k == v == w),

@@ -359,6 +359,123 @@ def test_rglru_scan_kernel_matches_plain(dev, dtype, with_h0, B, T, R):
     _close(got, rglru_scan_plain(a, x, h0), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,hd", [
+    (2, 1, 2, 64),           # T = 1: one ragged chunk
+    (1, 1, 1, 128),
+    (1, 9, 2, 32),           # 2 lanes per column, a ragged second chunk
+    (1, 17, 3, 100),         # two column blocks, padded rows
+    (2, 24, 2, 128),         # 8 lanes per column, three full chunks
+])
+def test_wkv6_kernel_at_the_split_boundaries(dev, dtype, B, T, H, hd):
+    r, k, v = (_rand((B, T, H, hd), dtype, dev, 40 + i) for i in range(3))
+    w = _decay((B, T, H, hd), dtype, dev, 43)
+    u = _rand((H, hd), torch.float32, dev, 44)
+    y, S = kops.wkv6(r, k, v, w, u, return_state=True)
+    torch.cuda.synchronize()
+    want_y, want_S = wkv6_plain(r, k, v, w, u, return_state=True)
+    _close(y, want_y, dtype)
+    _close(S, want_S, dtype)
+    staging = "cp.async" if dtype == torch.float32 and hd % 4 == 0 \
+        else "register"
+    assert kops.wkv6.last_instance.endswith(f"{staging} staging")
+
+
+def test_wkv6_misaligned_f32_rows_stage_through_registers(dev):
+    B, T, H, hd = 1, 12, 2, 64
+    n = B * T * H * hd
+    flat = _rand((4 * n + 1,), torch.float32, dev, 45)
+    r, k, v = (flat[1 + i * n:1 + (i + 1) * n].view(B, T, H, hd)
+               for i in range(3))
+    w = _decay((B, T, H, hd), torch.float32, dev, 46)
+    u = _rand((H, hd), torch.float32, dev, 47)
+    y, S = kops.wkv6(r, k, v, w, u, return_state=True)
+    torch.cuda.synchronize()
+    assert kops.wkv6.last_instance == \
+        "16 lanes of 4 rows x 4 columns, register staging"
+    want_y, want_S = wkv6_plain(r, k, v, w, u, return_state=True)
+    _close(y, want_y, torch.float32)
+    _close(S, want_S, torch.float32)
+
+
+def test_wkv6_rwkv6_prefill_instance(dev):
+    """rwkv6-1.6b's prefill ([4, 256, 32, 64] f32): tiles of 4 rows by 4
+    columns of S, 16 lanes per column group, chunks staged with
+    cp.async."""
+    B, T, H, hd = 4, 256, 32, 64
+    r, k, v = (_rand((B, T, H, hd), torch.float32, dev, 48 + i)
+               for i in range(3))
+    w = _decay((B, T, H, hd), torch.float32, dev, 51)
+    u = _rand((H, hd), torch.float32, dev, 52)
+    n0 = kops.wkv6.launches
+    y, S = kops.wkv6(r, k, v, w, u, return_state=True)
+    torch.cuda.synchronize()
+    assert kops.wkv6.launches == n0 + 1
+    assert kops.wkv6.last_instance == \
+        "16 lanes of 4 rows x 4 columns, cp.async staging"
+    want_y, want_S = wkv6_plain(r, k, v, w, u, return_state=True)
+    _close(y, want_y, torch.float32)
+    _close(S, want_S, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,T,R", [
+    (2, 1, 2560),
+    (2, 7, 256),
+    (2, 33, 512),            # 4 warps, a ragged last segment
+    (1, 300, 2560),          # a cluster of 3 blocks along T
+    (1, 2048, 256),          # a cluster of 8 blocks along T
+    (1, 4100, 256),          # segments of 65 steps: two sweeps
+    (2, 65, 301),            # R odd: a ragged last block of channels
+])
+def test_rglru_scan_kernel_at_the_split_boundaries(dev, dtype, with_h0, B,
+                                                   T, R):
+    a = _decay((B, T, R), dtype, dev, 53)
+    x = _rand((B, T, R), dtype, dev, 54)
+    h0 = _rand((B, R), torch.float32, dev, 55) if with_h0 else None
+    n0 = kops.rglru_scan.launches
+    got = kops.rglru_scan(a, x, h0)
+    torch.cuda.synchronize()
+    assert kops.rglru_scan.launches == n0 + 1
+    _close(got, rglru_scan_plain(a, x, h0), dtype)
+    assert kops.rglru_scan.last_instance.endswith(
+        "two sweeps" if T > 2048 else "staged")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_view_offset_by_one_element(dev, dtype):
+    """A view that starts one element in: the f32 staging's 4-byte
+    copies and the bf16 element copies need no more than the element's
+    alignment."""
+    B, T, R = 2, 40, 256
+    n = B * T * R
+    a_flat = torch.empty(n + 1, dtype=dtype, device=dev)
+    a_flat[1:] = _decay((n,), dtype, dev, 56)
+    a = a_flat[1:].view(B, T, R)
+    x = _rand((n + 1,), dtype, dev, 57)[1:].view(B, T, R)
+    got = kops.rglru_scan(a, x)
+    torch.cuda.synchronize()
+    assert kops.rglru_scan.last_instance == "cluster 1 x 4 warps, staged"
+    _close(got, rglru_scan_plain(a, x), dtype)
+
+
+def test_rglru_scan_recurrentgemma_prefill_instance(dev):
+    """recurrentgemma-2b's prefill ([4, 256, 2560] f32): clusters of 2
+    blocks of 4 warps per 32 channels, 32 steps a warp staged in shared
+    memory."""
+    B, T, R = 4, 256, 2560
+    a = _decay((B, T, R), torch.float32, dev, 58)
+    x = _rand((B, T, R), torch.float32, dev, 59)
+    n0 = kops.rglru_scan.launches
+    got = kops.rglru_scan(a, x)
+    torch.cuda.synchronize()
+    assert kops.rglru_scan.launches == n0 + 1
+    assert kops.rglru_scan.last_instance == \
+        "cluster 2 x 4 warps, staged"
+    _close(got, rglru_scan_plain(a, x), torch.float32)
+
+
 def test_recurrent_kernels_refuse_what_they_do_not_take(dev):
     r = _rand((1, 4, 2, 130), torch.float32, dev, 0)       # hd 130
     with pytest.raises(KernelError):
