@@ -46,7 +46,24 @@ ignored):
    Then float32 at reduced depth (yi-9b and rwkv6 4 layers,
    recurrentgemma 6): the kernel path's greedy tokens equal the plain
    path's.
-5. The last line: ``{"ok": true, "device": {...}}``; before it a
+5. Serving: the serving runtime (request batching, admission and
+   deadlines, fault tolerance, tracing) answering concurrent requests of
+   phase 4's bf16 48-layer yi-9b model and params (prompts of 256
+   tokens, cache 1024, 8 decode steps) on ``Runtime(n_gpu=2,
+   max_batch=8, batch_wait_ms=50)`` with every trace kept, in five parts
+   (see ``phase_serving``): 16 requests at once with ``batching=True``
+   (tokens held to the unfused loop over each request's own batch,
+   padded as the chain pads; kernel launches per batch, not per
+   request) against the same 16 one request per dispatch, then both
+   again on one GPU worker (measured beside the two); a
+   ``[prefill, decode]`` batched chain whose DeviceTable is demuxed on
+   the card for 7 pinned decode steps per request; a rate-limited gate
+   shedding typed ``Overloaded`` and a deadline expiring typed in a
+   queue without launching; a crash and a transient fault recovered; and
+   every request's trace, its attribution and a Perfetto export under
+   ``build/``.  The detector's ``hang_timeout_s`` is set above phase 4's
+   measured first call, and no run that injects no hang shows a wedge.
+6. The last line: ``{"ok": true, "device": {...}}``; before it a
    ``kernels`` JSON line and the nvidia-smi line.
 
 Exits non-zero with no result when CUDA is unavailable or the port's
@@ -81,6 +98,11 @@ PATHS = (("yi-9b", 4, None), ("rwkv6-1.6b", 4, 4),
          ("recurrentgemma-2b", 6, None))
 CONTROL_FACTOR = 2.0
 STEPS, PROMPTS, SEQ, CACHE = 8, 4, 256, 1024
+#: the wedge detector's limit for phase 4's runtimes: far above any call
+#: seen there (yi-9b's first call, the slowest, took 1.3-1.9 s); phase 5
+#: sets its own from phase 4's measured first call
+PATH_HANG_TIMEOUT_S = 60.0
+SERVE_REQUESTS, SERVE_BATCH, SERVE_WAIT_MS = 16, 8, 50.0
 
 
 class SmokeFailure(RuntimeError):
@@ -403,7 +425,7 @@ def serve(torch, dev, cfg, calls=3):
     table = Table([("tokens", torch.Tensor)],
                   [(toks[i],) for i in range(prompts)])
     rt = dc.Runtime(n_cpu=1, n_gpu=1, net=dc.NetModel(scale=0.0),
-                    device=dev)
+                    hang_timeout_s=PATH_HANG_TIMEOUT_S, device=dev)
     try:
         pre, dec = dc.build_ops(model, params, cache_len=cache_len,
                                 name=cfg.name)
@@ -421,6 +443,8 @@ def serve(torch, dev, cfg, calls=3):
             retraces.append(EXECUTABLE_CACHE.traces() - tr0)
         launches = {name: getattr(kops, name).launches for name in KERNELS}
         dispatches = (chain.batch_dispatches, chain.row_dispatches)
+        check(rt.pool.fault_counts["wedge"] == 0,
+              f"no wedge detected ({rt.pool.fault_counts})")
     finally:
         rt.stop()
     got = [int(r.values[0]) for r in out.rows]
@@ -448,14 +472,15 @@ def expected_launches(cfg, prefills, steps):
     return want
 
 
-def phase_path(torch, dev, arch, f32_layers, logits_layers):
+def phase_path(torch, dev, arch, f32_layers, logits_layers, keep=False):
     """Serve ``arch`` at full width and depth in bf16 through the kernels
     and check it; then at f32 and ``f32_layers`` layers check the kernel
     path's greedy tokens against the plain path's.  The kernel path's
     logits are held to the plain path's within 0.05 at full depth, or at
     ``logits_layers`` where that is set, and then at full depth to the
     plain path's own gap under a last-bit change.  Returns the bf16 run's
-    launches."""
+    launches and, with ``keep``, (its model, params, first-call latency
+    in s) for the serving phase, else None."""
     from repro_torch.configs import get_config
     from repro_torch.examples import decode_cascade as dc
     from repro_torch.examples.depth_gap import nudge_f32
@@ -527,6 +552,7 @@ def phase_path(torch, dev, arch, f32_layers, logits_layers):
                                      toks))
         check(e_live < BF16_REL, f"{L}-layer logits rel err {e_live} < 0.05 "
               "with lam negated (prefill and first decode)")
+    served = (model, params, lats[0]) if keep else None
     del model, params
     _release(torch)
 
@@ -545,7 +571,541 @@ def phase_path(torch, dev, arch, f32_layers, logits_layers):
           f"steady {min(lats32) * 1e3} ms", flush=True)
     del model, params, plain32
     _release(torch)
-    return launches
+    return launches, served
+
+
+# -- phase 5: the serving runtime on full-width yi-9b ------------------------
+
+def _launches():
+    from repro_torch.kernels import ops as kops
+
+    return {name: getattr(kops, name).launches for name in KERNELS}
+
+
+def _zero_launches():
+    from repro_torch.kernels import ops as kops
+
+    for name in KERNELS:
+        getattr(kops, name).launches = 0
+
+
+def _burst(dep, toks, idx, **call_kw):
+    """Submit one request per prompt row in ``idx`` at once.  Returns
+    (futures, submit times, done times, call_dag times), all on the host
+    clock; a done time is taken in the future's callback."""
+    import torch
+
+    from repro_torch.core.table import Table
+
+    futs, t_sub, t_call = [], [], []
+    done = [None] * len(idx)
+    for j, i in enumerate(idx):
+        table = Table([("tokens", torch.Tensor)], [(toks[i],)])
+        t0 = time.perf_counter()
+        f = dep.runtime.call_dag(dep.dag.name, table, **call_kw)
+        t_call.append(time.perf_counter() - t0)
+        t_sub.append(t0)
+
+        def note(_f, j=j):
+            done[j] = time.perf_counter()
+        f.add_done_callback(note)
+        futs.append(f)
+    return futs, t_sub, done, t_call
+
+
+def _wait_for(cond, what):
+    deadline = time.perf_counter() + 60.0
+    while not cond():
+        if time.perf_counter() > deadline:
+            raise SmokeFailure(f"timed out waiting: {what}")
+        time.sleep(0.001)
+
+
+def _tokens(futs):
+    return [int(f.result(600).rows[0].values[0]) for f in futs]
+
+
+def _traces(tracer, dag, n):
+    """The ``n`` kept traces of ``dag`` in arrival order (trace ids count
+    up as ``call_dag`` is called).  A trace is finished in the future's
+    own callback, which may still be running when ``result()`` returns:
+    wait for it."""
+    _wait_for(lambda: len(tracer.kept(dag)) >= n,
+              f"{n} traces of {dag} finished")
+    traces = sorted(tracer.kept(dag), key=lambda t: t.trace_id)
+    if len(traces) != n:
+        raise SmokeFailure(f"{len(traces)} kept traces of {dag}, not {n}")
+    return traces
+
+
+def _batches(tracer, traces, node):
+    """How the burst was cut, read from the tracer: [(batch id, member
+    request indices in batch order)], in dispatch order, each checked
+    against its batch span's size.  The batcher keeps arrival order
+    within a batch (no member carries a deadline, so no EDF reorder)."""
+    groups = {}
+    for i, tr in enumerate(traces):
+        (ex,) = [s for s in tr.spans if s.name == f"exec@{node}"]
+        if ex.link is None:
+            raise SmokeFailure(f"request {i}'s exec@ span links to no "
+                               "batch")
+        groups.setdefault(ex.link, []).append(i)
+    spans = {s.link: s for s in tracer.batch_spans(set(groups))}
+    out = sorted(groups.items(), key=lambda kv: spans[kv[0]].t0)
+    for bid, members in out:
+        if spans[bid].attrs["size"] != len(members):
+            raise SmokeFailure(f"batch {bid} size {spans[bid].attrs['size']}"
+                               f" != its {len(members)} members")
+    return out
+
+
+def _padded(torch, rows):
+    """The rows as the chain runs them: row 0 repeated up to the row
+    count's bucket (``DeviceTable.from_columns`` and ``take`` pad so)."""
+    from repro_torch.core.lowering import bucket_rows
+
+    k = rows.shape[0]
+    b = bucket_rows(k)
+    return torch.cat([rows, rows[:1].expand(b - k, -1)]) if b > k else rows
+
+
+def _batch_oracle(torch, model, params, toks, members):
+    """The unfused loop over one batch's rows in batch order, padded as
+    the chain pads, so every GEMM has the chain's shape (in bf16, tokens
+    are held only to an oracle of the same shapes)."""
+    from repro_torch.examples import decode_cascade as dc
+
+    rows = _padded(torch, toks[members].to(model.device))
+    return dc.reference_decode(model, params, rows, steps=STEPS,
+                               cache_len=CACHE)[:len(members)]
+
+
+def _check_batched_tokens(torch, model, params, toks, idx, got, batches,
+                          what):
+    for bid, members in batches:
+        want = _batch_oracle(torch, model, params, toks,
+                             [idx[m] for m in members])
+        have = [got[m] for m in members]
+        if have != want:
+            raise SmokeFailure(f"{what}: batch {bid} tokens {have} != the "
+                               f"unfused loop's over its padded rows {want}")
+    check(True, f"{what}: every request's tokens == the unfused loop over "
+          f"its own batch, padded as the chain pads "
+          f"({[len(m) for _, m in batches]} requests per batch)")
+
+
+def _stats(t_sub, done, n_launch, wall):
+    import numpy as np
+
+    lat = np.array([d - s for s, d in zip(t_sub, done)])
+    p50, p99 = np.percentile(lat, [50, 99])
+    return {"req_per_s": len(lat) / wall, "p50_ms": float(p50) * 1e3,
+            "p99_ms": float(p99) * 1e3,
+            "launches_per_request": n_launch / len(lat)}
+
+
+def _serve_burst(dep, toks, idx):
+    """One measured burst with the launch counters zeroed just before:
+    (tokens, stats, launches, the chain's (batched, per-row) dispatch
+    counts before and after, submit times, done times)."""
+    chain = dep.plan.ops[-1].op
+    d0 = (chain.batch_dispatches, chain.row_dispatches)
+    _zero_launches()
+    t0 = time.perf_counter()
+    futs, t_sub, done, _ = _burst(dep, toks, idx)
+    got = _tokens(futs)
+    # the last done-callback may still be running
+    _wait_for(lambda: None not in done, "done callbacks")
+    wall = max(done) - t0
+    launches = _launches()
+    d1 = (chain.batch_dispatches, chain.row_dispatches)
+    stats = _stats(t_sub, done, launches["flash_attention"], wall)
+    return got, stats, launches, (d0, d1), t_sub, done
+
+
+def _serve_modes(torch, rt, model, params, toks, alone):
+    """Part 1 on ``rt``: the burst of ``SERVE_REQUESTS`` one-prompt
+    requests through a cascade with the ``batching`` hint (tokens held to
+    the unfused loop over each request's own batch, launches per batch),
+    then the same requests one per dispatch (tokens held to ``alone``,
+    the unfused loop on each prompt alone).  Each burst is measured after
+    a warm-up.  Returns (the batched deployment, the numbers, its burst's
+    traces, submit times, done times)."""
+    from repro_torch.examples import decode_cascade as dc
+
+    L = model.cfg.num_layers
+    everyone = list(range(SERVE_REQUESTS))
+    pre, dec = dc.build_ops(model, params, cache_len=CACHE,
+                            name=model.cfg.name)
+    dep = dc.build(rt, pre, dec, steps=STEPS, name="serve-batched",
+                   batching=True)
+    node = dep.function_names[0]
+    _tokens(_burst(dep, toks, everyone)[0])              # warm the shapes
+    rt.tracer.clear()
+    got, b_stats, launches, (d0, d1), t_sub, done = _serve_burst(
+        dep, toks, everyone)
+    traces = _traces(rt.tracer, dep.dag.name, SERVE_REQUESTS)
+    batches = _batches(rt.tracer, traces, node)
+    sizes = [len(m) for _, m in batches]
+    nb = len(batches)
+    check(sum(sizes) == SERVE_REQUESTS and max(sizes) > 1,
+          f"batch sizes {sizes} sum to {SERVE_REQUESTS}, one holds more "
+          f"than one request")
+    check(d1[0] - d0[0] + d1[1] - d0[1] == nb
+          and d1[0] - d0[0] == sum(1 for k in sizes if k > 1),
+          f"the chain dispatched once per batch: {d1[0] - d0[0]} batched "
+          f"+ {d1[1] - d0[1]} per-row (batches of one) == {nb} batches")
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flash_attention=L * nb, decode_attention=L * STEPS * nb)
+    check(launches == want, f"launches over the burst {launches} == {L} x "
+          f"{nb} batches (flash), {L} x {STEPS} x {nb} (decode): per "
+          f"batch, not per request")
+    _check_batched_tokens(torch, model, params, toks, everyone, got,
+                          batches, "batched burst")
+
+    pre_u, dec_u = dc.build_ops(model, params, cache_len=CACHE,
+                                name=model.cfg.name)
+    dep_u = dc.build(rt, pre_u, dec_u, steps=STEPS, name="serve-unbatched",
+                     batching=False)
+    _tokens(_burst(dep_u, toks, [0])[0])                  # warm
+    got_u, u_stats, launches_u, _, _, _ = _serve_burst(
+        dep_u, toks, everyone)
+    check(launches_u["flash_attention"] == L * SERVE_REQUESTS
+          and launches_u["decode_attention"] == L * STEPS * SERVE_REQUESTS,
+          f"one request per dispatch: launches {launches_u}")
+    check(got_u == alone, "unbatched tokens == the unfused loop on each "
+          "prompt alone")
+    # service time per dispatch, as the executor measured it (exec_s of
+    # each exec@ span; a batch's members share one)
+    b_stats["exec_s"] = [
+        next(s for s in traces[m[0]].spans if s.name == f"exec@{node}")
+        .attrs["exec_s"] for _, m in batches]
+    u_node = dep_u.function_names[0]
+    u_stats["exec_s"] = sorted(
+        next(s for s in tr.spans if s.name == f"exec@{u_node}")
+        .attrs["exec_s"] for tr in _traces(
+            rt.tracer, dep_u.dag.name, SERVE_REQUESTS + 1)[1:])
+    stats = {"gpu_workers": len(rt.pool.by_class("gpu")),
+             "requests": SERVE_REQUESTS, "batch_sizes": sizes,
+             "batched": b_stats, "unbatched": u_stats}
+    return dep, stats, traces, t_sub, done
+
+
+def phase_serving(torch, dev, model, params, first_s, smi):
+    """Phase 5 (see the module docstring), on phase 4's yi-9b model and
+    params.  Parts: 1 batched against one request per dispatch, on two
+    GPU workers and again on one; 5 tracing of part 1's requests; 2 the
+    device-resident demux; 3 admission and deadlines; 4 faults."""
+    from repro_torch.examples import decode_cascade as dc
+    from repro_torch.obs.trace import Tracer
+
+    toks = torch.randint(0, model.cfg.vocab_size, (SERVE_REQUESTS, SEQ),
+                         dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(SEED + 2))
+    # the wedge detector: far above the slowest call this card showed (a
+    # batch of 8 holds twice phase 4's rows; two batches share the card)
+    hang = max(30.0, 20.0 * first_s)
+
+    def runtime(n_gpu):
+        return dc.Runtime(n_cpu=1, n_gpu=n_gpu, net=dc.NetModel(scale=0.0),
+                          max_batch=SERVE_BATCH,
+                          batch_wait_ms=SERVE_WAIT_MS, hang_timeout_s=hang,
+                          tracer=Tracer(sample_rate=1.0), device=dev)
+
+    rt = runtime(2)
+    print(f"  Runtime(n_gpu=2, max_batch={SERVE_BATCH}, batch_wait_ms="
+          f"{SERVE_WAIT_MS}, hang_timeout_s={hang}): phase 4's first "
+          f"call took {first_s} s", flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    try:
+        # part 1: batched against one request per dispatch
+        alone = [dc.reference_decode(model, params, toks[i:i + 1].to(dev),
+                                     steps=STEPS, cache_len=CACHE)[0]
+                 for i in range(SERVE_REQUESTS)]
+        dep, stats, traces, t_sub, done = _serve_modes(
+            torch, rt, model, params, toks, alone)
+        print(f"  serving: {json.dumps(dict(card=smi, **stats))}",
+              flush=True)
+        # the same on one GPU worker: does the second host thread help?
+        rt1 = runtime(1)
+        try:
+            stats1 = _serve_modes(torch, rt1, model, params, toks, alone)[1]
+            check(rt1.pool.fault_counts["wedge"] == 0,
+                  f"no wedge on one worker ({rt1.pool.fault_counts})")
+        finally:
+            rt1.stop()
+        print(f"  serving on one GPU worker: "
+              f"{json.dumps(dict(card=smi, **stats1))}", flush=True)
+        _part_tracing(dep, traces, t_sub, done)
+        _part_demux(torch, dev, rt, model, params, toks)
+        _part_admission(torch, rt, dep, model, params, toks)
+        _part_faults(torch, rt, dep, model, params, toks)
+        check(rt.pool.fault_counts["wedge"] == 0,
+              f"no wedge in the serving phase ({rt.pool.fault_counts})")
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"  peak device memory {peak} bytes ({peak - held} above the "
+              f"{held} held before the phase)", flush=True)
+    finally:
+        rt.stop()
+
+
+def _part_tracing(dep, traces, t_sub, done):
+    """Part 5, on part 1's batched burst: every request's kept trace has
+    the spans admission, queue@, exec@ (linked to its batch), demux@ in
+    order, and its attributed components cover at least 90% of its
+    latency as the caller measured it; the traces go to a Perfetto file
+    under ``build/``."""
+    from repro_torch.obs import attribute, export_chrome
+
+    node = dep.function_names[0]
+    names = ["admission", f"queue@{node}", f"exec@{node}", f"demux@{node}"]
+    for i, tr in enumerate(traces):
+        got_names = [s.name for s in tr.spans]
+        if got_names != names:
+            raise SmokeFailure(f"request {i} spans {got_names} != {names}")
+        total = sum(b.total_s for b in attribute([tr]).nodes.values())
+        lat = done[i] - t_sub[i]
+        if total < 0.9 * lat:
+            raise SmokeFailure(f"request {i}: attributed {total} s < 90% "
+                               f"of its measured {lat} s")
+    check(True, f"{len(traces)} kept traces, spans admission, queue@, "
+          f"exec@ (linked to its batch), demux@ of the chain in order; "
+          f"components >= 90% of each request's measured latency")
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    path = os.path.join(HERE, "build", "serving_trace.json")
+    n_ev = export_chrome(dep.runtime.tracer, path, dag=dep.dag.name)
+    print(f"  Perfetto trace: {n_ev} events in {path}", flush=True)
+    print(attribute(traces).table(), flush=True)
+
+
+def _part_demux(torch, dev, rt, model, params, toks):
+    """Part 2: 4 requests through ``[prefill, decode]`` merged across
+    requests, then 7 decode steps per request pinned to the producer's
+    worker; tokens held to the split plain loop, the parts crossing the
+    edge are DeviceTables on the card, and no copy crosses it."""
+    from repro_torch.examples import decode_cascade as dc
+
+    L = model.cfg.num_layers
+    pre, dec_b = dc.build_ops(model, params, cache_len=CACHE,
+                              name=model.cfg.name)
+    _, dec = dc.build_ops(model, params, cache_len=CACHE,
+                          name=model.cfg.name)
+    dep = _split_deploy(rt, pre, dec_b, dec)
+    n1, n2 = dep.function_names
+    node2 = dep.dag.nodes[n2]
+    check(dep.dag.nodes[n1].emits_device and not node2.batching,
+          "split cascade: the batching [prefill, decode] chain emits a "
+          "DeviceTable to the 7-step chain")
+    seen = []
+    inner = node2.fn
+
+    def spy(tables, ctx):
+        dt = getattr(tables[0], "device", None)
+        seen.append((type(tables[0]).__name__, getattr(dt, "type", dt)))
+        return inner(tables, ctx)
+
+    node2.fn = spy
+    four = list(range(4))
+    rt.tracer.clear()
+    _zero_launches()
+    got = _tokens(_burst(dep, toks, four)[0])
+    launches = _launches()
+    traces = _traces(rt.tracer, dep.dag.name, 4)
+    batches = _batches(rt.tracer, traces, n1)
+    nb = len(batches)
+    for bid, members in batches:
+        want = _split_oracle(torch, model, params, toks, members)
+        check([got[m] for m in members] == want,
+              f"split batch {bid}: tokens == prefill + 1 step over the "
+              f"padded batch, then 7 steps per row from its slice {want}")
+    check(launches["flash_attention"] == L * nb
+          and launches["decode_attention"] == L * (nb + (STEPS - 1) * 4),
+          f"split launches {launches}: {nb} batched prefills and steps, "
+          f"then {STEPS - 1} steps per request")
+    check(seen == [("DeviceTable", dev.type)] * 4,
+          f"the parts handed to the 7-step chain are DeviceTables on the "
+          f"card: {seen}")
+    for i, tr in enumerate(traces):
+        e1, e2 = (next(s for s in tr.spans if s.name == f"exec@{n}")
+                  for n in (n1, n2))
+        c1, c2 = e1.attrs.get("copies", {}), e2.attrs.get("copies", {})
+        if "gathers" in c1 or "stacks" in c2 or \
+                e1.attrs["executor"] != e2.attrs["executor"]:
+            raise SmokeFailure(
+                f"request {i}: first node copies {c1} (want no "
+                f"device->host), second {c2} (want no host->device), "
+                f"executors {e1.attrs['executor']} and "
+                f"{e2.attrs['executor']} (want one)")
+    ex1, ex2 = ([next(s for s in tr.spans if s.name == f"exec@{n}")
+                 .attrs.get("exec_s") for tr in traces] for n in (n1, n2))
+    check(True, "no device->host copy at the demuxed edge; each part ran "
+          "on its producer's worker")
+    print(f"  device-resident edge: first node exec_s {ex1} (closes at "
+          f"launch), second node exec_s {ex2} (holds the device time)",
+          flush=True)
+
+
+def _part_admission(torch, rt, dep, model, params, toks):
+    """Part 3: a rate-limited gate admits the first 4 of a burst of 12
+    and sheds 8 typed in under 5 ms each; then, with the gate cleared, a
+    lone request whose deadline is far below one batch's time, sent
+    while both GPU workers are busy, expires typed in a queue and its
+    batch never launches."""
+    from repro_torch.serving import (AdmissionController, ClassPolicy,
+                                     DeadlineExceeded, Overloaded)
+
+    L = model.cfg.num_layers
+    name, node = dep.dag.name, dep.function_names[0]
+    tracer = rt.tracer
+    rt.set_admission(name, AdmissionController(classes={
+        "interactive": ClassPolicy("interactive", priority=2, rate=1.0,
+                                   burst=4)}))
+    shed0 = len(rt.metrics_snapshot().get(f"dag/{name}/shed_t", []))
+    tracer.clear()
+    twelve = list(range(12))
+    t_b = time.perf_counter()
+    futs, _, _, t_call = _burst(dep, toks, twelve)
+    t_b = time.perf_counter() - t_b
+    ok, shed = [], []
+    for j, f in enumerate(futs):
+        e = f.exception(600)
+        if e is None:
+            ok.append(j)
+        elif isinstance(e, Overloaded) and e.reason == "rate_limit" \
+                and not isinstance(e, DeadlineExceeded):
+            shed.append(j)
+        else:
+            raise e
+    check(t_b < 1.0 and ok == [0, 1, 2, 3] and shed == twelve[4:],
+          f"12 requests in {t_b} s: the first 4 admitted, 8 shed typed "
+          f"(Overloaded, rate_limit)")
+    check(max(t_call[j] for j in shed) < 5e-3,
+          f"each shed call_dag returned in < 5 ms (max "
+          f"{max(t_call[j] for j in shed)} s)")
+    n_shed = len(rt.metrics_snapshot().get(f"dag/{name}/shed_t", []))
+    check(n_shed - shed0 == 8, f"dag/{name}/shed_t counts 8")
+    got = _tokens([futs[j] for j in ok])
+    admitted = [t for t in _traces(tracer, name, 12) if not t.shed]
+    _check_batched_tokens(torch, model, params, toks, ok, got,
+                          _batches(tracer, admitted, node),
+                          "admitted requests")
+    rt.set_admission(name, None)
+
+    chain = dep.plan.ops[-1].op
+    c0 = chain.batch_dispatches + chain.row_dispatches
+    exp0 = len(rt.metrics_snapshot().get(f"dag/{name}/expired_t", []))
+    batch_s = float(min(s.duration_s for s in tracer.batch_spans()))
+    tracer.clear()
+    _zero_launches()
+    fill, _, _, _ = _burst(dep, toks, list(range(SERVE_REQUESTS)))
+    gpus = rt.pool.by_class("gpu")
+    _wait_for(lambda: len(gpus) == 2 and all(e.busy for e in gpus),
+              "both GPU workers busy with the filler burst")
+    budget = batch_s / 20.0
+    late, _, _, _ = _burst(dep, toks, [0], deadline_s=budget)
+    err = late[0].exception(600)
+    check(isinstance(err, DeadlineExceeded),
+          f"a lone request with deadline_s={budget} (a batch takes "
+          f"{batch_s} s) behind two busy workers fails typed: {err!r}")
+    _tokens(fill)
+    traces = _traces(tracer, name, SERVE_REQUESTS + 1)
+    nb = len(_batches(tracer, traces[:SERVE_REQUESTS], node))
+    ran = chain.batch_dispatches + chain.row_dispatches - c0
+    launches = _launches()
+    check(ran == nb and launches["flash_attention"] == L * nb
+          and launches["decode_attention"] == L * STEPS * nb,
+          f"its batch never launched: {ran} dispatches, launches "
+          f"{launches} == the filler's {nb} batches")
+    n_exp = len(rt.metrics_snapshot().get(f"dag/{name}/expired_t", []))
+    check(n_exp - exp0 == 1, f"dag/{name}/expired_t counts 1; its spans "
+          f"{[s.kind for s in traces[-1].spans]}")
+
+
+def _part_faults(torch, rt, dep, model, params, toks):
+    """Part 4: a crash of a GPU worker (detected, requeued, replaced) and
+    then a transient fault (retried once), each on a burst of 8 requests
+    whose tokens stay held to the same-shape oracle."""
+    from repro_torch.serving import FaultPlan
+
+    name, node = dep.dag.name, dep.function_names[0]
+    eight = list(range(8))
+    fc0 = dict(rt.pool.fault_counts)
+    rt.set_fault_plan(FaultPlan(seed=7).crash(rate=1.0, limit=1,
+                                              classes=("gpu",)))
+    rt.tracer.clear()
+    got = _tokens(_burst(dep, toks, eight)[0])
+    rt.set_fault_plan(None)
+    fc = {k: rt.pool.fault_counts[k] - fc0[k] for k in fc0}
+    check(fc["crash"] == 1 and fc["requeued"] >= 1 and fc["replaced"] == 1
+          and fc["wedge"] == 0,
+          f"a crash of a GPU worker detected, requeued and replaced: {fc}")
+    _check_batched_tokens(torch, model, params, toks, eight, got,
+                          _batches(rt.tracer, _traces(rt.tracer, name, 8),
+                                   node), "crash recovery")
+    r0 = len(rt.metrics_snapshot().get(f"dag/{name}/retry_t", []))
+    rt.set_fault_plan(FaultPlan(seed=7).transient(rate=1.0, limit=1))
+    rt.tracer.clear()
+    got = _tokens(_burst(dep, toks, eight)[0])
+    rt.set_fault_plan(None)
+    n_retry = len(rt.metrics_snapshot().get(f"dag/{name}/retry_t", []))
+    check(n_retry - r0 == 1, f"a transient fault retried once "
+          f"(dag/{name}/retry_t +{n_retry - r0})")
+    _check_batched_tokens(torch, model, params, toks, eight, got,
+                          _batches(rt.tracer, _traces(rt.tracer, name, 8),
+                                   node), "transient recovery")
+
+
+def _split_deploy(rt, pre, dec_batched, dec):
+    """``[prefill, decode]`` with the batching hint (one chain, merged
+    across requests), then ``STEPS - 1`` decode steps without it:
+    ``FuseChainsPass`` splits the chain at the change of hint, so the
+    first chain's DeviceTable is demuxed on the card and each request's
+    steps run pinned to the producer's worker.  The hint lives on the op,
+    so the batched decode step is an op instance of its own."""
+    import torch
+
+    from repro_torch.core.compiler import compile_flow
+    from repro_torch.core.dataflow import Dataflow
+
+    fl = Dataflow([("tokens", torch.Tensor)])
+    node = fl.apply_op(pre, gpu=True, batching=True).apply_op(
+        dec_batched, gpu=True, batching=True)
+    for _ in range(STEPS - 1):
+        node = node.apply_op(dec, gpu=True)
+    fl.output = node
+    return compile_flow(fl, rt, fusion=True, name="serve-split")
+
+
+def _split_oracle(torch, model, params, toks, members):
+    """The split cascade's plain loop: prefill and one step over the
+    batch's rows padded as the chain pads, then ``STEPS - 1`` steps per
+    row from that row's slice of the cache (``take`` hands each request
+    its own one-row cache)."""
+    from repro_torch.models import registry
+
+    rows = _padded(torch, toks[members].to(model.device))
+    logits, cache = model.prefill(params, {"tokens": rows}, CACHE)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    pos = torch.full((rows.shape[0],), SEQ, dtype=torch.int32,
+                     device=rows.device)
+    lg, cache = model.decode_step(params, tok[:, None], pos, cache)
+    tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)
+    pos = pos + 1
+    paths, axes, _ = registry._cache_layout(model, CACHE)
+    out = []
+    for p in range(len(members)):
+        idx = torch.tensor([p], device=rows.device)
+        c = registry._unflatten(paths, [
+            leaf.index_select(ax, idx) for (_, leaf), ax
+            in zip(registry._flatten(cache), axes)])
+        t, q = tok[p:p + 1], pos[p:p + 1]
+        for _ in range(STEPS - 1):
+            lg, c = model.decode_step(params, t[:, None], q, c)
+            t = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)
+            q = q + 1
+        out.append(int(t[0]))
+    return out
 
 
 def kernel_vs_plain(torch, dev, cfg, params, toks):
@@ -647,13 +1207,22 @@ def main() -> int:
     del scratch
 
     print("== paths", flush=True)
+    served = {}
     for arch, f32_layers, logits_layers in PATHS:
         _release(torch)          # nothing of the last path stays allocated
         # each kernel's launches come from the run of the path it is on
-        for name, n in phase_path(torch, dev, arch, f32_layers,
-                                  logits_layers).items():
+        launches, kept = phase_path(torch, dev, arch, f32_layers,
+                                    logits_layers, keep=arch == "yi-9b")
+        if kept is not None:
+            served[arch] = kept  # phase 5 serves yi-9b's weights
+        for name, n in launches.items():
             if n:
                 kernels[name]["launches"] = n
+
+    print("== serving", flush=True)
+    _release(torch)
+    phase_serving(torch, dev, *served.pop("yi-9b"), smi=smi)
+    _release(torch)
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"]

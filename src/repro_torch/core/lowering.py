@@ -181,6 +181,11 @@ def _to_device(v, device: torch.device):
     return torch.as_tensor(np.asarray(v), device=device)
 
 
+#: guards the dispatch counters: several executor threads run one chain
+#: at once when the runtime serves concurrent batches
+_COUNTS_LOCK = threading.Lock()
+
+
 @dataclasses.dataclass
 class JittedFuse(ops.Fuse):
     """A fused chain of tensor map/filter operators composed into ONE
@@ -241,7 +246,8 @@ class JittedFuse(ops.Fuse):
         Row, or None for a row a fused filter dropped."""
         dev = self.dev
         out = self._row_fn(*(_to_device(v, dev) for v in r.values))
-        self.row_dispatches += 1
+        with _COUNTS_LOCK:
+            self.row_dispatches += 1
         keep = None
         if self._has_filter:
             keep, out = out[0], tuple(out[1:])
@@ -317,8 +323,10 @@ class DegradePolicy:
     * ``competitive`` — False disables competitive replication for the
       request.
 
-    The admission gate that assigns policies is not ported yet; the
-    router honours a policy set with :func:`degraded_execution`.
+    The admission gate (``serving/admission.py``) assigns a policy to a
+    request class; the executor sets it with :func:`degraded_execution`
+    around the request's node fn, on the worker thread, where the router
+    reads it.
     """
     per_row: bool = True
     bucket_cap: Optional[int] = 8
@@ -638,8 +646,9 @@ class BatchedJittedFuse(JittedFuse):
             raise ops.TypecheckError(
                 f"{self.name}: returned {len(out_cols)} values, schema "
                 f"expects {self._out_arity}")
-        self.batch_dispatches += 1
-        self.rows_batched += dt.nrows
+        with _COUNTS_LOCK:
+            self.batch_dispatches += 1
+            self.rows_batched += dt.nrows
         if do:
             # ownership passed on; make accidental reuse visible
             dt.donatable = False

@@ -2,15 +2,19 @@
 
 Builds the same full-width bf16 cascade as ``chip_smoke.py`` for one arch
 (yi-9b unless ``--arch`` names another; full depth, prefill + 8 decode
-steps, 4 prompts x 256 tokens, cache 1024, ``use_kernels=True``), warms
-it up, then serves one request under
+steps, 4 prompts x 256 tokens unless ``--prompts`` says how many, cache
+1024, ``use_kernels=True``), warms it up, then serves one request under
 ``torch.profiler`` and prints: the host wall time of the request, the
 device time summed per kernel name (top rows, then every row of the
 port's own kernels), the device busy share of the request's wall time,
-and the number of kernel launches.
+and the number of kernel launches.  One prompt takes the chain's
+per-row path (a request served one per dispatch), which keeps its output
+on the device; more take one batched dispatch (a batch the runtime's
+batcher merged), which copies every cache column to the host at the
+chain's output.
 
     PYTHONPATH=src python -m repro_torch.examples.profile_cascade \
-        [--arch yi-9b | rwkv6-1.6b | recurrentgemma-2b]
+        [--arch yi-9b | rwkv6-1.6b | recurrentgemma-2b] [--prompts N]
 
 Needs one CUDA device.
 """
@@ -54,13 +58,15 @@ def _merged_busy_us(intervals):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="yi-9b", choices=ARCH_IDS)
+    ap.add_argument("--prompts", type=int, default=4,
+                    help="rows of the request (1: the per-row path)")
     ap.add_argument("--trace", default="",
                     help="also write a Chrome trace to this path")
     args = ap.parse_args(argv)
 
     dev = torch.device("cuda")
     cfg = dataclasses.replace(get_config(args.arch), use_kernels=True)
-    prompts, seq, cache_len = 4, 256, 1024
+    prompts, seq, cache_len = args.prompts, 256, 1024
     model = build_model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     toks = torch.randint(0, cfg.vocab_size, (prompts, seq),
@@ -97,7 +103,8 @@ def main(argv=None):
     busy_us = _merged_busy_us(
         [(e.time_range.start, e.time_range.end) for e in events])
     rows = sorted(per_name.items(), key=lambda kv: -kv[1][0])
-    print(f"device: {torch.cuda.get_device_name(0)}; {cfg.name}")
+    print(f"device: {torch.cuda.get_device_name(0)}; {cfg.name}, "
+          f"{prompts} prompts")
     print(f"request wall {wall_s * 1e3} ms; device kernel time "
           f"{dev_us / 1e3} ms (summed), busy {busy_us / 1e3} ms "
           f"(union) = {busy_us / 1e3 / (wall_s * 1e3)} of wall; "
@@ -110,7 +117,8 @@ def main(argv=None):
         k in name for k in PORT_KERNELS)]
     for name, (us, n) in ours:
         print(f"  port kernel {us / 1e3:10.3f} ms  x{n:<6d} {name[:70]}")
-    print(json.dumps({"wall_ms": wall_s * 1e3, "device_ms": dev_us / 1e3,
+    print(json.dumps({"prompts": prompts, "wall_ms": wall_s * 1e3,
+                      "device_ms": dev_us / 1e3,
                       "busy_ms": busy_us / 1e3,
                       "busy_share": busy_us / 1e3 / (wall_s * 1e3),
                       "device_events": len(events),

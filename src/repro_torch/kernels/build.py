@@ -66,6 +66,7 @@ class KernelError(RuntimeError):
 
 
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -186,7 +187,8 @@ def launch(wrapper, device: torch.device, *args) -> None:
         msg = getattr(lib, f"{name}_error_string")(code)
         raise KernelError(f"{name} launch failed: CUDA error {code} "
                           f"({(msg or b'').decode()})")
-    wrapper.launches += 1
+    with _COUNT_LOCK:            # executor threads launch concurrently
+        wrapper.launches += 1
 
 
 def strides_arg(values: List[int]):

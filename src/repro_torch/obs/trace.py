@@ -1,0 +1,311 @@
+"""Low-overhead request tracing: spans on a per-request ``Trace``.  Port
+of the reference package's ``obs/trace.py``.
+
+Model
+-----
+A :class:`Trace` is one request's timeline: a flat list of :class:`Span`
+(name, monotonic ``[t0, t1)``, attrs).  Span names carry the node in the
+suffix (``queue@stage1``, ``exec@stage1``, ``demux@stage1``); request
+boundary spans (``admission``) have no node.  A merged batch emits ONE
+batch-level span held by the :class:`Tracer` (not duplicated into every
+member trace); member request spans link to it via ``link`` (the batch's
+dispatch sequence number), which the Chrome exporter renders as flow
+arrows.
+
+Sampling
+--------
+Recording is cheap (list appends + ``perf_counter`` calls), so every
+request gets a live trace while the tracer is enabled; RETENTION is what
+is sampled.  At finish a trace is kept when it was **head-sampled**
+(deterministic 1-in-N at ``sample_rate``) or when the **tail** says it
+is interesting regardless of the coin flip: SLO-missed, errored, shed,
+or retried traces are always kept — the traces an operator actually
+asks about.  Kept traces live in a bounded ring (old traces fall off),
+so steady-state memory is constant.
+
+Thread-safety: spans are appended from executor callback threads and
+hedge/retry timers; appends are list-atomic under the GIL and the keep
+ring is lock-protected.  All timestamps are ``repro_torch.obs.clock.now``
+(monotonic) — never wall clock.
+"""
+from __future__ import annotations
+
+import itertools
+import threading
+from collections import deque
+from typing import Any, Deque, Dict, List, Optional
+
+from repro_torch.obs.clock import now
+
+_trace_ids = itertools.count(1)
+
+#: event names that flip a trace's tail-keep flags when recorded
+_RETRY_EVENTS = frozenset({"retry", "requeue"})
+_HEDGE_EVENTS = frozenset({"hedge_launch"})
+
+
+class Span:
+    """One timed region (or instant, when ``t1 == t0``) on a trace."""
+
+    __slots__ = ("name", "t0", "t1", "attrs", "link")
+
+    def __init__(self, name: str, t0: float, t1: float,
+                 attrs: Optional[Dict[str, Any]] = None,
+                 link: Optional[int] = None):
+        self.name = name
+        self.t0 = t0
+        self.t1 = t1
+        self.attrs = attrs or {}
+        self.link = link
+
+    @property
+    def duration_s(self) -> float:
+        return max(0.0, self.t1 - self.t0)
+
+    @property
+    def node(self) -> Optional[str]:
+        """The node a ``kind@node`` span belongs to (None for request-
+        boundary spans like ``admission``)."""
+        _, sep, node = self.name.partition("@")
+        return node if sep else None
+
+    @property
+    def kind(self) -> str:
+        return self.name.partition("@")[0]
+
+    def to_dict(self) -> Dict[str, Any]:
+        d = {"name": self.name, "t0": self.t0, "t1": self.t1,
+             "attrs": dict(self.attrs)}
+        if self.link is not None:
+            d["link"] = self.link
+        return d
+
+    def __repr__(self):
+        return (f"Span({self.name}, {self.duration_s * 1e3:.3f}ms"
+                f"{', link=' + str(self.link) if self.link else ''})")
+
+
+class Trace:
+    """One request's timeline.  Created by :meth:`Tracer.start`, carried
+    on the request's ``RequestContext``, finished exactly once when the
+    request resolves."""
+
+    __slots__ = ("trace_id", "dag", "klass", "t0", "t1", "spans",
+                 "sampled", "shed", "shed_reason", "error", "slo_miss",
+                 "retried", "hedged", "finished", "deadline_s", "_tracer")
+
+    def __init__(self, tracer: "Tracer", dag: str, klass: str,
+                 t0: float, sampled: bool):
+        self.trace_id = next(_trace_ids)
+        self.dag = dag
+        self.klass = klass
+        self.t0 = t0
+        self.t1: Optional[float] = None
+        self.spans: List[Span] = []
+        self.sampled = sampled
+        self.shed = False
+        self.shed_reason: Optional[str] = None
+        self.error: Optional[str] = None
+        self.slo_miss = False
+        self.retried = False
+        self.hedged = False
+        self.finished = False
+        self.deadline_s: Optional[float] = None
+        self._tracer = tracer
+
+    # -- recording -----------------------------------------------------------
+    def span(self, name: str, t0: float, t1: Optional[float] = None,
+             link: Optional[int] = None, **attrs) -> Span:
+        s = Span(name, t0, t1 if t1 is not None else now(),
+                 attrs or None, link)
+        self.spans.append(s)
+        return s
+
+    def event(self, name: str, **attrs) -> Span:
+        """A zero-duration marker (retry fired, hedge launched, requeue).
+        Retry-ish events flip the tail-keep flag: a disturbed request's
+        trace is always worth keeping."""
+        t = now()
+        kind = name.partition("@")[0]
+        if kind in _RETRY_EVENTS:
+            self.retried = True
+        if kind in _HEDGE_EVENTS:
+            self.hedged = True
+        return self.span(name, t, t, **attrs)
+
+    # -- lifecycle -----------------------------------------------------------
+    def finish(self, *, error: Optional[BaseException] = None,
+               slo_miss: bool = False, shed: bool = False,
+               shed_reason: Optional[str] = None) -> bool:
+        """Close the trace and apply the keep policy.  Idempotent (first
+        close wins); returns whether the trace was kept."""
+        if self.finished:
+            return False
+        self.finished = True
+        self.t1 = now()
+        if error is not None:
+            self.error = f"{type(error).__name__}: {error}"
+        self.slo_miss = self.slo_miss or slo_miss
+        self.shed = self.shed or shed
+        if shed_reason is not None:
+            self.shed_reason = shed_reason
+        return self._tracer._finish(self)
+
+    @property
+    def kept_reason(self) -> Optional[str]:
+        if self.slo_miss:
+            return "slo_miss"
+        if self.error is not None:
+            return "error"
+        if self.shed:
+            return "shed"
+        if self.retried:
+            return "retried"
+        if self.sampled:
+            return "sampled"
+        return None
+
+    @property
+    def latency_s(self) -> Optional[float]:
+        return None if self.t1 is None else self.t1 - self.t0
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"trace_id": self.trace_id, "dag": self.dag,
+                "klass": self.klass, "t0": self.t0, "t1": self.t1,
+                "latency_s": self.latency_s,
+                "kept_reason": self.kept_reason,
+                "slo_miss": self.slo_miss, "shed": self.shed,
+                "shed_reason": self.shed_reason, "error": self.error,
+                "retried": self.retried, "hedged": self.hedged,
+                "deadline_s": self.deadline_s,
+                "spans": [s.to_dict() for s in self.spans]}
+
+    def __repr__(self):
+        lat = f"{self.latency_s * 1e3:.2f}ms" if self.t1 else "open"
+        return (f"Trace(#{self.trace_id} {self.dag}/{self.klass} {lat}, "
+                f"{len(self.spans)} spans, keep={self.kept_reason})")
+
+
+class Tracer:
+    """Owns the sampling policy and the bounded rings of kept traces and
+    batch-level spans.
+
+    ``sample_rate`` is HEAD sampling: the fraction of requests whose
+    trace is kept even when nothing went wrong (deterministic 1-in-N so
+    overhead and retention are load-independent, not coin-flip noisy).
+    SLO-miss / error / shed / retried traces are kept regardless — the
+    tail-based policy, decided at :meth:`Trace.finish`.
+
+    ``enabled=False`` turns the whole subsystem into ``None`` checks on
+    the hot path: ``start`` returns None and every instrumentation site
+    is gated on it.
+    """
+
+    def __init__(self, *, enabled: bool = True, sample_rate: float = 0.0,
+                 capacity: int = 256, batch_capacity: Optional[int] = None):
+        self.enabled = enabled
+        self.sample_rate = max(0.0, min(1.0, float(sample_rate)))
+        self.capacity = int(capacity)
+        self._kept: Deque[Trace] = deque(maxlen=self.capacity)
+        # batch spans are shared by N member traces; keep enough that a
+        # kept trace's linked batch span is still resolvable at export
+        self._batches: Deque[Span] = deque(
+            maxlen=batch_capacity or 4 * self.capacity)
+        # control-plane events (autoscaler replica changes, blue/green
+        # swap phases) ride their own bounded ring
+        self._control: Deque[Span] = deque(
+            maxlen=batch_capacity or 4 * self.capacity)
+        self._lock = threading.Lock()
+        self._offered = 0
+        self.started = 0
+        self.finished = 0
+        self.kept_count = 0
+
+    # -- lifecycle -----------------------------------------------------------
+    def start(self, dag: str, klass: str = "interactive",
+              t0: Optional[float] = None) -> Optional[Trace]:
+        if not self.enabled:
+            return None
+        with self._lock:
+            self._offered += 1
+            self.started += 1
+            # deterministic 1-in-N head sampling: request k is sampled
+            # when floor(k*rate) > floor((k-1)*rate) — exactly rate*N of
+            # any N consecutive requests, no RNG on the hot path
+            r = self.sample_rate
+            sampled = r >= 1.0 or (
+                r > 0.0 and int(self._offered * r) > int(
+                    (self._offered - 1) * r))
+        return Trace(self, dag, klass, t0 if t0 is not None else now(),
+                     sampled)
+
+    def _finish(self, trace: Trace) -> bool:
+        keep = bool(trace.sampled or trace.slo_miss or trace.error
+                    or trace.shed or trace.retried)
+        with self._lock:
+            self.finished += 1
+            if keep:
+                self.kept_count += 1
+                self._kept.append(trace)
+        return keep
+
+    # -- batch-level spans ---------------------------------------------------
+    def record_batch(self, node: str, t0: float, t1: float,
+                     link: int, **attrs) -> Span:
+        """ONE span for a merged batch dispatch; member request spans
+        point at it via the same ``link`` id."""
+        s = Span(f"batch@{node}", t0, t1, attrs or None, link)
+        with self._lock:
+            self._batches.append(s)
+        return s
+
+    # -- control-plane events ------------------------------------------------
+    def control_event(self, name: str, t0: Optional[float] = None,
+                      t1: Optional[float] = None, **attrs) -> Optional[Span]:
+        """A control-plane span (``replan@dag`` phases, ``scale@pool``
+        replica changes): not tied to any request, kept in its own
+        bounded ring and exported on a separate track — so a during-swap
+        p99 blip lines up against the swap phase that caused it.  Instant
+        when only ``t0`` (or neither) is given."""
+        if not self.enabled:
+            return None
+        t0 = t0 if t0 is not None else now()
+        s = Span(name, t0, t1 if t1 is not None else t0, attrs or None)
+        with self._lock:
+            self._control.append(s)
+        return s
+
+    def control_events(self, kind: Optional[str] = None) -> List[Span]:
+        with self._lock:
+            spans = list(self._control)
+        if kind is not None:
+            spans = [s for s in spans if s.kind == kind]
+        return spans
+
+    # -- reads ---------------------------------------------------------------
+    def kept(self, dag: Optional[str] = None) -> List[Trace]:
+        with self._lock:
+            traces = list(self._kept)
+        if dag is not None:
+            traces = [t for t in traces if t.dag == dag]
+        return traces
+
+    def batch_spans(self, links: Optional[set] = None) -> List[Span]:
+        with self._lock:
+            spans = list(self._batches)
+        if links is not None:
+            spans = [s for s in spans if s.link in links]
+        return spans
+
+    def clear(self) -> None:
+        with self._lock:
+            self._kept.clear()
+            self._batches.clear()
+            self._control.clear()
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {"started": self.started, "finished": self.finished,
+                    "kept": self.kept_count, "buffered": len(self._kept),
+                    "batch_spans": len(self._batches),
+                    "control_events": len(self._control)}

@@ -240,12 +240,20 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
         "('jax', 'jaxlib', 'repro'))\n"
         "n = sum(1 for k in sys.modules if k.startswith('repro_torch.'))\n"
         "print(n, bad)\n"
+        "print(' '.join(sorted(k for k in sys.modules\n"
+        "                      if k.startswith('repro_torch.'))))\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr + res.stdout
-    assert int(res.stdout.split()[0]) >= 20      # every module imported
+    assert int(res.stdout.split()[0]) >= 54      # every module imported
+    walked = set(res.stdout.splitlines()[1].split())
+    for mod in ("obs.keys", "obs.metrics", "obs.trace", "obs.attribution",
+                "obs.export", "serving.retry", "serving.admission",
+                "serving.faults", "serving.batcher", "runtime.executor",
+                "runtime.runtime", "runtime.autoscaler"):
+        assert f"repro_torch.{mod}" in walked, mod
 
 
 def test_entry_points_raise_without_a_card():

@@ -10,6 +10,7 @@ sum in different orders); bf16 inputs compare rel max error < 0.05, the
 reference package's bar for bf16 kernel paths.
 """
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -532,3 +533,108 @@ def test_tiny_recurrent_cascade_on_card_uses_kernel(dev, arch, kernel,
                                           cache_len=48)
     finally:
         rt.stop()
+
+
+# -- the serving runtime on the card ------------------------------------------
+
+def _tiny_yi(dev):
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_tiny_config("yi-9b"), dtype="float32",
+                              use_kernels=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    plain = build_model(dataclasses.replace(cfg, use_kernels=False))
+    return cfg, model, params, plain
+
+
+def _serving_runtime():
+    from repro_torch.examples import decode_cascade as dc
+    from repro_torch.obs import Tracer
+
+    return dc.Runtime(n_cpu=1, n_gpu=2, net=dc.NetModel(scale=0.0),
+                      max_batch=8, batch_wait_ms=50.0,
+                      tracer=Tracer(sample_rate=1.0))
+
+
+def test_batched_cascade_on_card_launches_per_batch(dev):
+    """Five one-prompt requests at once through the batching cascade on
+    the card: each request's tokens equal the plain loop's on its prompt
+    alone (f32), the kernels launch once per batch the tracer saw, and
+    the wedge detector stayed quiet."""
+    from repro_torch.examples import decode_cascade as dc
+
+    cfg, model, params, plain = _tiny_yi(dev)
+    toks = torch.randint(0, cfg.vocab_size, (5, dc.SEQ), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    rt = _serving_runtime()
+    try:
+        pre, dec = dc.build_ops(model, params)
+        dep = dc.build(rt, pre, dec, name="batched", batching=True)
+        f0 = kops.flash_attention.launches
+        d0 = kops.decode_attention.launches
+        got, sizes, _ = dc.serve_requests(dep, toks)
+        chain = dep.plan.ops[-1].op
+        assert sum(sizes) == 5
+        assert chain.batch_dispatches + chain.row_dispatches == len(sizes)
+        assert kops.flash_attention.launches - f0 == \
+            cfg.num_layers * len(sizes)
+        assert kops.decode_attention.launches - d0 == \
+            cfg.num_layers * dc.STEPS * len(sizes)
+        assert rt.pool.fault_counts["wedge"] == 0
+    finally:
+        rt.stop()
+    assert got == [dc.reference_decode(plain, params, toks[i:i + 1].to(dev))[0]
+                   for i in range(5)]
+
+
+def test_device_resident_demux_on_card(dev):
+    """``[prefill, decode]`` merged across requests, then three pinned
+    decode steps per request: the parts crossing the edge are
+    DeviceTables on the card, the first chain copies nothing back to the
+    host, and the tokens equal the plain loop's (f32)."""
+    from repro_torch.core.compiler import compile_flow
+    from repro_torch.core.dataflow import Dataflow
+    from repro_torch.core.table import DeviceTable
+    from repro_torch.examples import decode_cascade as dc
+
+    cfg, model, params, plain = _tiny_yi(dev)
+    toks = torch.randint(0, cfg.vocab_size, (3, dc.SEQ), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(2))
+    rt = _serving_runtime()
+    try:
+        pre, dec = dc.build_ops(model, params)
+        _, dec_batched = dc.build_ops(model, params)
+        fl = Dataflow([("tokens", torch.Tensor)])
+        node = fl.apply_op(pre, gpu=True, batching=True).apply_op(
+            dec_batched, gpu=True, batching=True)
+        for _ in range(dc.STEPS - 1):
+            node = node.apply_op(dec, gpu=True)
+        fl.output = node
+        dep = compile_flow(fl, rt, fusion=True, name="split")
+        n1, n2 = dep.dag.nodes
+        seen = []
+        inner = dep.dag.nodes[n2].fn
+
+        def spy(tables, ctx):
+            seen.append((type(tables[0]), tables[0].device.type))
+            return inner(tables, ctx)
+
+        dep.dag.nodes[n2].fn = spy
+        futs = [dep.execute(dc.Table([("tokens", torch.Tensor)],
+                                     [(toks[i],)])) for i in range(3)]
+        got = [int(f.result(300).rows[0].values[0]) for f in futs]
+        deadline = time.perf_counter() + 30
+        while len(rt.tracer.kept("split")) < 3:
+            assert time.perf_counter() < deadline
+            time.sleep(0.01)
+        for tr in rt.tracer.kept("split"):
+            (e1,) = [s for s in tr.spans if s.name == f"exec@{n1}"]
+            assert "gathers" not in e1.attrs.get("copies", {})
+        assert rt.pool.fault_counts["wedge"] == 0
+    finally:
+        rt.stop()
+    assert seen == [(DeviceTable, "cuda")] * 3
+    assert got == [dc.reference_decode(plain, params, toks[i:i + 1].to(dev))[0]
+                   for i in range(3)]
