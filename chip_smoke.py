@@ -63,7 +63,26 @@ ignored):
    every request's trace, its attribution and a Perfetto export under
    ``build/``.  The detector's ``hang_timeout_s`` is set above phase 4's
    measured first call, and no run that injects no hang shows a wedge.
-6. The last line: ``{"ok": true, "device": {...}}``; before it a
+6. Compile: the compile-time half of the system on phase 4's bf16
+   48-layer yi-9b model and params (see ``phase_compile``).  The static
+   verifier passes the cascade (``compile_flow(fusion=True, verify=True)``
+   with a sample request) with zero errors, its launch-rule check (CF103)
+   having checked both attention kernels at yi-9b's shapes, while the
+   card's allocated bytes and every launch counter stay where they were;
+   the CF301 footprint of the largest bucket is printed beside the growth
+   of the peak allocation over the first warm at that bucket, and a
+   budget below the footprint is refused (CF301) before anything runs.
+   A flash step whose head_dim breaks the CUDA rule is refused by CF103
+   and, compiled unverified, raises ``KernelError`` on the card; one that
+   keeps the rule passes and launches.  Competitive execution: the
+   cascade as two replicas on two GPU workers under a hang fault (8
+   requests, one at a time) against the same 8 without replicas, tokens
+   equal to the unfused loop, no wedge, p50/p99 of both and the races
+   each replica won.  Locality: the recommender with ``fusion=
+   locality=True`` answers as numpy does and runs every lookup on an
+   executor caching its key; medians of it and the naive flow.  Then
+   ``python -m repro_torch.check src/repro_torch/examples`` exits 0.
+7. The last line: ``{"ok": true, "device": {...}}``; before it a
    ``kernels`` JSON line and the nvidia-smi line.
 
 Exits non-zero with no result when CUDA is unavailable or the port's
@@ -103,6 +122,9 @@ STEPS, PROMPTS, SEQ, CACHE = 8, 4, 256, 1024
 #: sets its own from phase 4's measured first call
 PATH_HANG_TIMEOUT_S = 60.0
 SERVE_REQUESTS, SERVE_BATCH, SERVE_WAIT_MS = 16, 8, 50.0
+#: phase 6: requests of the competitive burst, replicas, the hang fault
+COMPETE_REQUESTS, COMPETE_REPLICAS = 8, 2
+HANG_RATE, HANG_S = 0.25, 2.0
 
 
 class SmokeFailure(RuntimeError):
@@ -1108,6 +1130,321 @@ def _split_oracle(torch, model, params, toks, members):
     return out
 
 
+# -- phase 6: the compile-time half on full-width yi-9b ----------------------
+
+def phase_compile(torch, dev, model, params, first_s, smi):
+    """Phase 6 (see the module docstring), on phase 4's yi-9b model and
+    params.  Parts: the verifier at full width; the verifier against the
+    card's KernelError; competitive execution under a hang fault;
+    locality; the linter over the port's examples."""
+    hang = max(30.0, 20.0 * first_s)
+    out = {"card": smi}
+    out["verify"] = _part_verify(torch, dev, model, params, hang)
+    _part_launch_rules(torch, dev)
+    out["competitive"] = _part_competitive(torch, dev, model, params, hang)
+    out["locality"] = _part_locality(torch, dev)
+    _part_check_cli()
+    print(f"  compile: {json.dumps(out)}", flush=True)
+
+
+def _sample(torch, toks, i):
+    from repro_torch.core.table import Table
+
+    return Table([("tokens", torch.Tensor)], [(toks[i],)])
+
+
+def _part_verify(torch, dev, model, params, hang):
+    """The cascade compiled with ``verify=True`` and a sample request:
+    zero errors, CF103 run on both attention kernels at yi-9b's shapes,
+    nothing allocated and nothing launched across the compile; the CF301
+    footprint of the largest bucket beside the growth of the peak
+    allocation over the first warm at that bucket; a budget below the
+    footprint refused with CF301 before anything runs."""
+    from repro_torch.analysis import VerificationError
+    from repro_torch.core.table import Table
+    from repro_torch.examples import decode_cascade as dc
+
+    toks = torch.randint(0, model.cfg.vocab_size, (64, SEQ),
+                         dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(SEED + 3))
+    rt = dc.Runtime(n_cpu=1, n_gpu=1, net=dc.NetModel(scale=0.0),
+                    hang_timeout_s=hang, device=dev)
+    try:
+        pre, dec = dc.build_ops(model, params, cache_len=CACHE,
+                                name=model.cfg.name)
+        budget = torch.cuda.mem_get_info(dev)[0]
+        gc.collect()     # no earlier garbage may be freed inside the compile
+        torch.cuda.synchronize(dev)
+        held = torch.cuda.memory_allocated(dev)
+        _zero_launches()
+        t0 = time.perf_counter()
+        dep = dc.build(rt, pre, dec, steps=STEPS, name="verified",
+                       verify=True, verify_input=_sample(torch, toks, 0),
+                       verify_budget_bytes=budget)
+        verify_s = time.perf_counter() - t0
+        torch.cuda.synchronize(dev)
+        rep = dep.verification
+        check(rep.ok and not rep.errors(),
+              f"verify at full width: {len(rep.errors())} errors, "
+              f"{len(rep.warnings())} warnings in {verify_s} s\n"
+              f"{rep.table()}")
+        check(torch.cuda.memory_allocated(dev) == held
+              and _launches() == dict.fromkeys(KERNELS, 0),
+              f"the verified compile allocated nothing on the card "
+              f"({torch.cuda.memory_allocated(dev)} == {held} bytes) and "
+              f"launched nothing ({_launches()})")
+        H, K, hd = (model.cfg.num_heads, model.cfg.num_kv_heads,
+                    model.cfg.head_dim)
+        want = {("flash_attention", (1, H, SEQ, hd)),
+                ("decode_attention", (1, H, hd))}
+        seen = {(k, shapes[0]) for _op, k, shapes in rep.kernel_checks}
+        check(want <= seen, f"CF103 checked both attention kernels at "
+              f"yi-9b's shapes: {sorted(seen)}")
+        (op_id, (peak, per_row, cap)), = rep.footprint.items()
+        rows = [(toks[i],) for i in range(cap)]
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        res = dep.execute(Table([("tokens", torch.Tensor)], rows)).result(
+            600)
+        warm_s = time.perf_counter() - t0
+        grew = torch.cuda.max_memory_allocated(dev) - held
+        got = [int(r.values[0]) for r in res.rows]
+        check(len(got) == cap
+              and all(0 <= t < model.cfg.vocab_size for t in got),
+              f"the first warm at bucket {cap}: {cap} tokens in range "
+              f"in {warm_s} s")
+        print(f"  CF301 static footprint at bucket {cap}: {peak} bytes "
+              f"({per_row} a row); peak allocation grew {grew} bytes over "
+              f"the first warm at that bucket", flush=True)
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        held = torch.cuda.memory_allocated(dev)
+        _zero_launches()
+        t0 = time.perf_counter()
+        try:
+            dc.build(rt, pre, dec, steps=STEPS, name="over-budget",
+                     verify=True, verify_input=_sample(torch, toks, 0),
+                     verify_budget_bytes=peak - 1)
+            raise SmokeFailure("a budget below the footprint compiled")
+        except VerificationError as e:
+            codes = sorted({d.code for d in e.report.errors()})
+        reject_s = time.perf_counter() - t0
+        torch.cuda.synchronize(dev)
+        check(codes == ["CF301"] and "over-budget" not in rt.dags
+              and torch.cuda.memory_allocated(dev) == held
+              and _launches() == dict.fromkeys(KERNELS, 0),
+              f"budget {peak - 1} bytes (the footprint less one) refused "
+              f"with {codes} in {reject_s} s: not registered, nothing "
+              f"allocated, nothing launched")
+        return {"verify_s": verify_s, "reject_s": reject_s,
+                "footprint_bytes": peak, "bucket": cap,
+                "bytes_per_row": per_row, "warm_peak_growth_bytes": grew,
+                "warm_s": warm_s, "budget_bytes": budget,
+                "kernels_checked": sorted(seen)}
+    finally:
+        rt.stop()
+
+
+def _flash_flow(torch):
+    from repro_torch.core.dataflow import Dataflow
+    from repro_torch.kernels import ops as kops
+
+    def scale(o: torch.Tensor) -> torch.Tensor:
+        return o * 2
+
+    fl = Dataflow([("q", torch.Tensor), ("k", torch.Tensor),
+                   ("v", torch.Tensor)])
+    fl.output = fl.map(kops.kernel_step("flash_attention", causal=True),
+                       names=["o"], gpu=True).map(scale, names=["o"],
+                                                  gpu=True)
+    return fl
+
+
+def _part_launch_rules(torch, dev):
+    """The verifier agrees with the card: a flash step at head_dim 12
+    (the CUDA kernel needs a multiple of 8) is refused by CF103, and
+    compiled unverified it raises KernelError at its first call; at
+    yi-9b's head_dim 128 it passes and launches."""
+    from repro_torch.analysis import VerificationError
+    from repro_torch.core.compiler import compile_flow
+    from repro_torch.core.table import Table
+    from repro_torch.examples import decode_cascade as dc
+    from repro_torch.kernels.build import KernelError
+
+    def sample(hd):
+        g = torch.Generator().manual_seed(SEED + 4)
+        t = torch.randn(32, SEQ, hd, generator=g).to(torch.bfloat16)
+        return Table([("q", torch.Tensor), ("k", torch.Tensor),
+                      ("v", torch.Tensor)], [(t, t, t), (t, t, t)])
+
+    rt = dc.Runtime(n_cpu=1, n_gpu=1, net=dc.NetModel(scale=0.0),
+                    device=dev)
+    try:
+        try:
+            compile_flow(_flash_flow(torch), rt, fusion=True, verify=True,
+                         verify_input=sample(12), name="hd12")
+            raise SmokeFailure("CF103 passed head_dim 12")
+        except VerificationError as e:
+            codes = sorted({d.code for d in e.report.errors()})
+        check(codes == ["CF103"], f"head_dim 12 refused by the verifier "
+              f"with {codes}")
+        dep = compile_flow(_flash_flow(torch), rt, fusion=True,
+                           name="hd12-unverified")
+        _zero_launches()
+        err = dep.execute(sample(12)).exception(600)
+        check(isinstance(err, KernelError) and _launches()[
+            "flash_attention"] == 0,
+              f"compiled unverified, the card refuses it: {err!r}")
+        dep = compile_flow(_flash_flow(torch), rt, fusion=True, verify=True,
+                           verify_input=sample(128), name="hd128")
+        out = dep.execute(sample(128)).result(600)
+        torch.cuda.synchronize(dev)
+        check(dep.verification.ok and _launches()["flash_attention"] == 1
+              and len(out.rows) == 2,
+              "head_dim 128 verified clean and launched once for its "
+              "2-row batch")
+    finally:
+        rt.stop()
+
+
+def _part_competitive(torch, dev, model, params, hang):
+    """The cascade as ``COMPETE_REPLICAS`` replicas racing on two GPU
+    workers under a hang fault on the GPU class, against the same
+    requests without replicas: tokens equal the unfused loop on each
+    prompt alone, no wedge; p50/p99 of both modes and the races each
+    replica won (no gain asserted: the replicas share one card)."""
+    import numpy as np
+
+    from repro_torch.analysis import analyze, device_edge_info
+    from repro_torch.core.lowering import BatchedJittedFuse
+    from repro_torch.examples import decode_cascade as dc
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serving import FaultPlan
+
+    n = COMPETE_REQUESTS
+    toks = torch.randint(0, model.cfg.vocab_size, (n, SEQ),
+                         dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(SEED + 5))
+    alone = [dc.reference_decode(model, params, toks[i:i + 1].to(dev),
+                                 steps=STEPS, cache_len=CACHE)[0]
+             for i in range(n)]
+    rt = dc.Runtime(n_cpu=1, n_gpu=2, net=dc.NetModel(scale=0.0),
+                    hang_timeout_s=hang, tracer=Tracer(sample_rate=1.0),
+                    device=dev)
+    try:
+        pre, dec = dc.build_ops(model, params, cache_len=CACHE,
+                                name=model.cfg.name)
+        comp = dc.build(rt, pre, dec, steps=STEPS, name="competitive",
+                        competitive=COMPETE_REPLICAS)
+        plan = comp.plan
+        anyof = plan.op(plan.output_id)
+        reps = [plan.op(i) for i in anyof.inputs]
+        check(len(plan.ops) == COMPETE_REPLICAS + 1 and anyof.wait_any
+              and anyof.placement == "cpu"
+              and len(reps) == COMPETE_REPLICAS
+              and all(isinstance(r.op, BatchedJittedFuse)
+                      and r.placement == "gpu" for r in reps),
+              f"CompetitivePass: {COMPETE_REPLICAS} lowered copies on "
+              f"gpu and one anyof on cpu")
+        info = device_edge_info(plan)
+        fanout = {o.op_id: sum(o.op_id in c.inputs for c in plan.ops)
+                  for o in plan.ops}
+        donating = {i for i, (_e, d) in info.items() if d and fanout[i] > 1}
+        cf201 = {d.op_id for d in analyze(plan).by_code("CF201")}
+        check(donating == cf201 == set() and not any(
+            e for e, _d in info.values()),
+              f"no fan-out edge donates and no replica emits to the card "
+              f"(device_edge_info {info}; CF201 {sorted(cf201)})")
+        plain = dc.build(rt, pre, dec, steps=STEPS, name="no-replicas")
+        for dep in (comp, plain):                           # warm
+            dep.execute(_sample(torch, toks, 0)).result(600)
+        stats = {}
+        for mode, dep in (("competitive", comp), ("no_replicas", plain)):
+            inj = rt.set_fault_plan(FaultPlan(seed=SEED + 6).hang(
+                rate=HANG_RATE, hang_s=HANG_S, classes=("gpu",)))
+            rt.tracer.clear()
+            lats, got = [], []
+            for i in range(n):
+                t0 = time.perf_counter()
+                res = dep.execute(_sample(torch, toks, i)).result(600)
+                lats.append(time.perf_counter() - t0)
+                got.append(int(res.rows[0].values[0]))
+            rt.set_fault_plan(None)
+            check(got == alone, f"{mode}: tokens under the hang fault == "
+                  f"the unfused loop on each prompt alone {alone}")
+            p50, p99 = np.percentile(np.array(lats) * 1e3, [50, 99])
+            stats[mode] = {"p50_ms": float(p50), "p99_ms": float(p99),
+                           "hangs": inj.counts["hang"]}
+            if mode == "competitive":
+                stats[mode].update(_races(rt.tracer, comp, n))
+        # the losers still running must not be taken for wedges
+        _wait_for(lambda: all(not e.busy for e in rt.pool.by_class("gpu")),
+                  "the GPU workers idle")
+        check(rt.pool.fault_counts["wedge"] == 0,
+              f"no wedge ({rt.pool.fault_counts})")
+        return stats
+    finally:
+        rt.stop()
+
+
+def _races(tracer, dep, n):
+    """Per replica node: how many of the ``n`` requests it won (its
+    ``exec@`` span closed first; a loser's span closes after the request
+    finished, and its trace may no longer take it) and the executor of
+    each win."""
+    names = list(dep.dag.nodes[dep.dag.output].deps)
+    won = {nm: [] for nm in names}
+    for tr in _traces(tracer, dep.dag.name, n):
+        first = min((s for s in tr.spans if s.name.startswith("exec@")
+                     and s.name[len("exec@"):] in won),
+                    key=lambda s: s.t1)
+        won[first.name[len("exec@"):]].append(first.attrs.get("executor"))
+    return {"won": [len(w) for w in won.values()],
+            "won_on": list(won.values())}
+
+
+def _part_locality(torch, dev):
+    """The port's recommender on the card: the category matrices are
+    tensors on the card in the KVS; with ``fusion=locality=True`` the
+    answers equal numpy's and every lookup after the warm-up runs on an
+    executor caching its key; the naive flow's answers too.  Medians of
+    both (host clock, one request at a time)."""
+    from repro_torch.examples import recommender as rec
+
+    want = rec.numpy_scores()
+    out = {}
+    for mode, optimized in (("naive", False), ("optimized", True)):
+        r = rec.run(optimized, device=dev)
+        ok = all(a[0] == w[0] and abs(a[1] - w[1]) <= 1e-9 * abs(w[1])
+                 for a, w in zip(r["answers"], want))
+        check(ok and len(r["answers"]) == len(want),
+              f"recommender {mode}: {len(want)} answers == numpy's "
+              f"(product, score) for the same users")
+        local = sum(ex in where for _k, ex, where in r["dispatch"])
+        out[mode] = {"median_ms": r["median_s"] * 1e3,
+                     "lookups_on_a_caching_executor": local}
+    check(out["optimized"]["lookups_on_a_caching_executor"] == len(want),
+          f"every optimized lookup ran on an executor caching its key "
+          f"(naive: {out['naive']['lookups_on_a_caching_executor']} of "
+          f"{len(want)})")
+    return out
+
+
+def _part_check_cli():
+    """``python -m repro_torch.check src/repro_torch/examples`` exits 0."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.check",
+         os.path.join("src", "repro_torch", "examples")],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    last = (res.stdout.strip().splitlines() or [""])[-1]
+    check(res.returncode == 0, f"python -m repro_torch.check "
+          f"src/repro_torch/examples exits {res.returncode}: {last}"
+          + ("" if res.returncode == 0 else f"\n{res.stdout}{res.stderr}"))
+
+
 def kernel_vs_plain(torch, dev, cfg, params, toks):
     """Logits rel err of the kernel path against the plain path on the
     same params and prompts: (prefill, first decode step).  Checks that
@@ -1221,7 +1558,13 @@ def main() -> int:
 
     print("== serving", flush=True)
     _release(torch)
-    phase_serving(torch, dev, *served.pop("yi-9b"), smi=smi)
+    yi = served.pop("yi-9b")
+    phase_serving(torch, dev, *yi, smi=smi)
+    _release(torch)
+
+    print("== compile", flush=True)
+    phase_compile(torch, dev, *yi, smi=smi)
+    del yi
     _release(torch)
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

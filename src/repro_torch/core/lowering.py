@@ -61,6 +61,15 @@ def _array_annotation(t) -> bool:
     return any(t is a for a in _ARRAY_TYPES)
 
 
+def array_annotation(t) -> bool:
+    """Is ``t`` a tensor annotation for lowering purposes?  Public name
+    for the eligibility test ``map_is_torch_lowerable``/
+    ``filter_is_torch_lowerable`` apply per argument: the static verifier
+    (``repro_torch.analysis``) gates abstract interpretation on the same
+    predicate, so the two can never disagree about what lowers."""
+    return _array_annotation(t)
+
+
 def untraceable(err: BaseException) -> bool:
     """Is ``err`` a sign that a step cannot run on the lowered path (as
     opposed to a data error or a device failure)?  Type/shape errors, and

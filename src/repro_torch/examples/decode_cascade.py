@@ -20,6 +20,11 @@ requests are submitted at once: the runtime's batcher merges them into
 batched dispatches, and the run prints each request's tokens (held to
 the unfused loop on that prompt alone), the batch sizes the tracer saw
 and the requests per second.
+
+``build(..., competitive=k)`` compiles the cascade as k competitive
+replicas raced by a wait-any node, ``build(..., verify=True,
+verify_input=...)`` runs the static verifier first, and ``check_flows``
+is the hook ``python -m repro_torch.check`` lints.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import time
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_tiny_config
+from repro_torch.core import operators as ops
 from repro_torch.core.compiler import compile_flow
 from repro_torch.core.dataflow import Dataflow
 from repro_torch.core.table import Table
@@ -55,10 +61,22 @@ def build_ops(model, params, *, cache_len=CACHE, name=ARCH):
     return pre, dec
 
 
-def build_flow(pre, dec, *, steps=STEPS, batching=False):
+def build_flow(pre, dec, *, steps=STEPS, batching=False, competitive=0):
     """``batching=True`` puts the request-batching hint on every stage:
-    the runtime then merges concurrent requests into one dispatch."""
+    the runtime then merges concurrent requests into one dispatch.
+
+    ``competitive=k`` (k >= 2) builds the cascade as ONE op, a ``Fuse`` of
+    the stages, carrying ``competitive_replicas=k``: ``CompetitivePass``
+    (which runs before fusion) then replicates the whole chain k times,
+    each replica lowers to its own batched chain fed from the host (so
+    the runtime places each on any GPU worker), and an ``anyof`` on the
+    CPU takes the first to finish."""
     fl = Dataflow([("tokens", torch.Tensor)])
+    if competitive >= 2:
+        chain = ops.Fuse([pre] + [dec] * steps)
+        fl.output = fl.apply_op(chain, gpu=True, batching=batching,
+                                competitive_replicas=competitive)
+        return fl
     node = fl.apply_op(pre, gpu=True, batching=batching)
     for _ in range(steps):
         node = node.apply_op(dec, gpu=True, batching=batching)
@@ -67,10 +85,36 @@ def build_flow(pre, dec, *, steps=STEPS, batching=False):
 
 
 def build(rt, pre, dec, *, steps=STEPS, name="decode-cascade",
-          batching=False):
-    return compile_flow(build_flow(pre, dec, steps=steps,
-                                   batching=batching), rt,
-                        fusion=True, name=name)
+          batching=False, competitive=0, verify=None, verify_input=None,
+          verify_budget_bytes=None):
+    """Compile the cascade with fusion on ``rt`` (competitive execution
+    on when ``competitive`` >= 2).  ``verify``/``verify_input``/
+    ``verify_budget_bytes`` run the static verifier before anything is
+    registered (``compile_flow``)."""
+    return compile_flow(build_flow(pre, dec, steps=steps, batching=batching,
+                                   competitive=competitive), rt,
+                        fusion=True, competitive_exec=competitive >= 2,
+                        verify=verify, verify_input=verify_input,
+                        verify_budget_bytes=verify_budget_bytes, name=name)
+
+
+def check_flows():
+    """Static-verifier hook (``python -m repro_torch.check``): the tiny
+    f32 cascade with the kernels on, plain and competitive, built on the
+    CPU (verification runs nothing, so it needs no card)."""
+    from repro_torch.models.registry import stage_input_specs
+    cfg = dataclasses.replace(get_tiny_config(ARCH), dtype="float32",
+                              use_kernels=True)
+    model = build_model(cfg, device="cpu")
+    pre, dec = build_ops(model, model.init(torch.Generator().manual_seed(0)))
+    specs = stage_input_specs(model, "prefill", seq_len=SEQ,
+                              cache_len=CACHE)
+    return [{"name": "decode-cascade", "flow": build_flow(pre, dec),
+             "compile": {"fusion": True}, "input_specs": specs},
+            {"name": "decode-cascade-competitive",
+             "flow": build_flow(pre, dec, competitive=2),
+             "compile": {"fusion": True, "competitive_exec": True},
+             "input_specs": specs}]
 
 
 def reference_decode(model, params, toks, *, steps=STEPS, cache_len=CACHE):

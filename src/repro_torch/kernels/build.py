@@ -13,6 +13,7 @@ tensor that lies on the card.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,6 +25,7 @@ from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -158,10 +160,38 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+#: per thread: the list that :func:`abstract_calls` collects into
+_ABSTRACT = threading.local()
+
+
+@contextlib.contextmanager
+def abstract_calls():
+    """Collect the kernel calls made on fake tensors in this thread (the
+    static verifier's shape propagation): yields a list that gains one
+    ``(kernel name, operand shapes)`` per call, operands in the order the
+    wrapper passes them to :func:`card_of`."""
+    outer = getattr(_ABSTRACT, "calls", None)
+    _ABSTRACT.calls = calls = []
+    try:
+        yield calls
+    finally:
+        _ABSTRACT.calls = outer
+
+
 def card_of(name: str, tensors) -> Optional[torch.device]:
     """The CUDA device all ``tensors`` lie on, or None when they all lie on
     the CPU (the caller then runs its plain version).  Any other mix
-    raises :class:`KernelError`."""
+    raises :class:`KernelError`.
+
+    Fake tensors (``FakeTensorMode``: shape and dtype, no storage) also
+    give None: the plain version then propagates shapes and computes no
+    data, and the call is noted for :func:`abstract_calls`.  A tensor
+    that holds data is never fake, so no call on the card takes this."""
+    if any(isinstance(t, FakeTensor) for t in tensors):
+        calls = getattr(_ABSTRACT, "calls", None)
+        if calls is not None:
+            calls.append((name, tuple(tuple(t.shape) for t in tensors)))
+        return None
     devices = {t.device for t in tensors}
     if devices == {torch.device("cpu")}:
         return None

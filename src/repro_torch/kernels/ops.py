@@ -29,6 +29,10 @@ chains (``PlaceKernelsPass``):
   per batch) instead of vmapping the step.
 * ``register_pattern(fn, kernel, **params)`` pattern-matches an existing
   user function object to a kernel, for code that cannot be annotated.
+* ``kernel_call_of(fn)`` is the static verifier's probe: the call behind
+  a step or its twin.  Both carry their ``bound`` values
+  (``__kernel_bound__``), so the verifier can run the oracle in the
+  twin's place on fake tensors.
 """
 from __future__ import annotations
 
@@ -47,7 +51,8 @@ from repro_torch.kernels.wkv6 import wkv6
 __all__ = ["KernelError", "flash_attention", "decode_attention", "wkv6",
            "rglru_scan",
            "KernelCall", "KernelSpec", "KERNEL_REGISTRY", "kernel_step",
-           "register_pattern", "match_kernel", "placed_fn", "placed_twin"]
+           "register_pattern", "match_kernel", "kernel_call_of", "placed_fn",
+           "placed_twin"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,6 +184,13 @@ def match_kernel(fn) -> Optional[KernelCall]:
     return KERNEL_PATTERNS.get(fn)
 
 
+def kernel_call_of(fn) -> Optional[KernelCall]:
+    """The static verifier's probe (same resolution as ``match_kernel``):
+    the ``KernelCall`` behind a step function, whether it is the oracle
+    step or its placed kernel twin."""
+    return match_kernel(fn)
+
+
 # -- step construction -------------------------------------------------------
 
 def _named_fn(fname: str, argnames: Tuple[str, ...],
@@ -215,6 +227,7 @@ def _make_placed(spec: KernelSpec, call: KernelCall,
     fn = _named_fn(f"kernel_{spec.name}", spec.args, _rowwise(batched))
     fn.__batched__ = batched
     fn.__kernel__ = call
+    fn.__kernel_bound__ = bound
     return fn
 
 
@@ -228,6 +241,7 @@ def _make_step(spec: KernelSpec, call: KernelCall,
     fn = _named_fn(spec.name, spec.args, _rowwise(batched))
     fn.__batched__ = batched
     fn.__kernel__ = call
+    fn.__kernel_bound__ = bound
     fn.__kernel_placed__ = _make_placed(spec, call, bound)
     return fn
 

@@ -30,11 +30,25 @@ class LayerSpec:
     window: int = 0            # 0 = full attention
 
 
+#: config fields that change the reference's dense layout, cache or math
+#: and that this module does not read yet: field -> its default
+UNPORTED_FIELDS = {"kv_quant": False, "local_global_pattern": 0,
+                   "post_norms": False, "num_experts": 0,
+                   "moe_layer_period": 1}
+
+
 def block_layout(cfg: ModelConfig) -> Tuple[List[LayerSpec], int]:
-    """Return (specs for one block, n_blocks).  Dense only."""
+    """Return (specs for one block, n_blocks).  Dense only; a config that
+    sets a field of ``UNPORTED_FIELDS`` raises rather than being served
+    as if the field were unset."""
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (dense only)")
+    unported = {f: getattr(cfg, f) for f, default in UNPORTED_FIELDS.items()
+                if getattr(cfg, f) != default}
+    if unported:
+        raise NotImplementedError(
+            f"{cfg.name}: config fields {unported} are not ported yet")
     return [LayerSpec()], cfg.num_layers
 
 

@@ -10,6 +10,7 @@ sum in different orders); bf16 inputs compare rel max error < 0.05, the
 reference package's bar for bf16 kernel paths.
 """
 import dataclasses
+import gc
 import time
 
 import numpy as np
@@ -638,3 +639,115 @@ def test_device_resident_demux_on_card(dev):
     assert seen == [(DeviceTable, "cuda")] * 3
     assert got == [dc.reference_decode(plain, params, toks[i:i + 1].to(dev))[0]
                    for i in range(3)]
+
+
+def test_full_width_verify_allocates_nothing_and_launches_nothing(dev):
+    """yi-9b at full width (2 of its 48 layers, bf16, kernels on): the
+    verifier walks the cascade on fake tensors around the weights on the
+    card, checks both attention kernels at yi-9b's shapes, and neither
+    allocates on the card nor launches a kernel."""
+    from repro_torch.analysis import analyze
+    from repro_torch.configs import get_config
+    from repro_torch.core.ir import PhysicalPlan
+    from repro_torch.core.passes import build_pipeline
+    from repro_torch.core.table import Table
+    from repro_torch.examples import decode_cascade as dc
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("yi-9b"), num_layers=2,
+                              use_kernels=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    pre, dec = dc.build_ops(model, params, cache_len=1024)
+    plan = build_pipeline(fusion=True, device=dev).run(
+        PhysicalPlan.from_dataflow(dc.build_flow(pre, dec, steps=2)))
+    sample = Table([("tokens", torch.Tensor)],
+                   [(torch.zeros(256, dtype=torch.int32),)])
+    gc.collect()        # earlier tests' garbage must not be freed inside
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    launches = {k: getattr(kops, k).launches for k in
+                ("flash_attention", "decode_attention")}
+    rep = analyze(plan, sample=sample, device=dev, budget_bytes=64 << 30)
+    torch.cuda.synchronize()
+    assert rep.ok, rep.table()
+    assert torch.cuda.memory_allocated(dev) == held
+    assert {k: getattr(kops, k).launches for k in launches} == launches
+    shapes = {k: s for _op, k, s in rep.kernel_checks}
+    assert shapes["flash_attention"][0] == (1, 32, 256, 128)
+    assert shapes["decode_attention"][0] == (1, 32, 128)
+
+
+def test_cf103_verdict_matches_kernel_error_on_the_card(dev):
+    """A flash step whose head_dim (12) breaks the CUDA rule: the
+    verifier rejects the compile, and the same plan compiled without it
+    raises KernelError on its first call; head_dim 16 passes both."""
+    from repro_torch.analysis import VerificationError
+    from repro_torch.core.compiler import compile_flow
+    from repro_torch.core.dataflow import Dataflow
+    from repro_torch.core.table import Table
+    from repro_torch.examples import decode_cascade as dc
+
+    def flow():
+        fl = Dataflow([("q", torch.Tensor), ("k", torch.Tensor),
+                       ("v", torch.Tensor)])
+        step = kops.kernel_step("flash_attention", causal=True)
+        fl.output = fl.map(step, names=["o"], gpu=True).map(
+            _double_t, names=["o"], gpu=True)
+        return fl
+
+    def sample(hd):
+        t = torch.randn(4, 64, hd, generator=torch.Generator().manual_seed(0))
+        return Table([("q", torch.Tensor), ("k", torch.Tensor),
+                      ("v", torch.Tensor)], [(t, t, t), (t, t, t)])
+
+    rt = dc.Runtime(n_cpu=1, n_gpu=1, net=dc.NetModel(scale=0.0))
+    try:
+        with pytest.raises(VerificationError, match="CF103"):
+            compile_flow(flow(), rt, fusion=True, verify=True,
+                         verify_input=sample(12), name="bad")
+        dep = compile_flow(flow(), rt, fusion=True, name="bad-unverified")
+        with pytest.raises(KernelError, match="head_dim"):
+            dep.execute(sample(12)).result(120)
+        n0 = kops.flash_attention.launches
+        dep = compile_flow(flow(), rt, fusion=True, verify=True,
+                           verify_input=sample(16), name="good")
+        assert dep.verification.ok
+        out = dep.execute(sample(16)).result(120)
+        assert kops.flash_attention.launches > n0
+        assert len(out.rows) == 2
+    finally:
+        rt.stop()
+
+
+def _double_t(o: torch.Tensor) -> torch.Tensor:
+    return o * 2
+
+
+def test_competitive_cascade_on_card_under_hangs(dev):
+    """The tiny f32 cascade as two competitive replicas on two GPU
+    workers, a hang fault on the GPU class: every request's tokens equal
+    the plain loop's, hangs were injected, and no wedge."""
+    from repro_torch.core.table import Table
+    from repro_torch.examples import decode_cascade as dc
+    from repro_torch.serving import FaultPlan
+
+    cfg, model, params, plain = _tiny_yi(dev)
+    toks = torch.randint(0, cfg.vocab_size, (6, dc.SEQ), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(3))
+    rt = dc.Runtime(n_cpu=1, n_gpu=2, net=dc.NetModel(scale=0.0),
+                    hang_timeout_s=30.0)
+    try:
+        pre, dec = dc.build_ops(model, params)
+        dep = dc.build(rt, pre, dec, competitive=2, name="competitive")
+        inj = rt.set_fault_plan(FaultPlan(seed=5).hang(
+            rate=0.5, hang_s=0.5, classes=("gpu",)))
+        got = [int(dep.execute(Table([("tokens", torch.Tensor)],
+                                     [(toks[i],)])).result(300)
+                   .rows[0].values[0]) for i in range(6)]
+        assert inj.counts["hang"] >= 1
+        assert rt.pool.fault_counts["wedge"] == 0
+    finally:
+        rt.stop()
+    assert got == [dc.reference_decode(plain, params, toks[i:i + 1].to(dev))[0]
+                   for i in range(6)]
