@@ -82,7 +82,26 @@ ignored):
    locality=True`` answers as numpy does and runs every lookup on an
    executor caching its key; medians of it and the naive flow.  Then
    ``python -m repro_torch.check src/repro_torch/examples`` exits 0.
-7. The last line: ``{"ok": true, "device": {...}}``; before it a
+7. Plan: the measure -> model -> plan -> replan loop on phase 4's bf16
+   48-layer yi-9b model and params (see ``phase_plan``), on
+   ``Runtime(n_gpu=1, max_batch=8, batch_wait_ms=50)``.  ``profile_plan``
+   sweeps the compiled cascade at 1, 2, 4 and 8 rows (its bytes held to
+   the shapes, its launches to its dispatches) and the stages' cost
+   hooks seed the same sizes; ``propose`` plans at 0.5 req/s and at phase
+   5's one-worker rate for an SLO of twice the 1-row steady latency, and
+   each config compiles off the serving path with its buckets and
+   lowering; the admission gate's estimator p99 is printed beside phase
+   5's measured p99, and a burst above its capacity is shed typed with
+   its reasons while the admitted requests' tokens hold; the SLO
+   controller, ticked by hand after sparse traffic and a burst, hot-
+   applies batcher knobs without building an executable; a blue/green
+   replan to a new bucket set under one-row traffic drops nothing,
+   passes its canary and builds nothing on the 8 requests after the swap
+   (times, memory growth and p99 printed); a green with one weight
+   changed fails its canary and leaves blue serving and the card's
+   allocated bytes where they were; ``auto_deploy`` plans and serves the
+   cascade from a 1-row sample.
+8. The last line: ``{"ok": true, "device": {...}}``; before it a
    ``kernels`` JSON line and the nvidia-smi line.
 
 Exits non-zero with no result when CUDA is unavailable or the port's
@@ -94,6 +113,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -125,6 +145,22 @@ SERVE_REQUESTS, SERVE_BATCH, SERVE_WAIT_MS = 16, 8, 50.0
 #: phase 6: requests of the competitive burst, replicas, the hang fault
 COMPETE_REQUESTS, COMPETE_REPLICAS = 8, 2
 HANG_RATE, HANG_S = 0.25, 2.0
+#: phase 7: the profile's sweep, the sparse rate (req/s), the prompts
+#: served one at a time, the blue/green proposal's buckets (a set no
+#: proposal of the optimizer makes, so the swap always recompiles) and
+#: how far the card's allocated bytes may stay above their value before
+#: an aborted replan
+PLAN_SWEEP = (1, 2, 4, 8)
+PLAN_SPARSE_RATE = 0.5
+PLAN_PROMPTS = 4
+PLAN_GREEN_BUCKETS = (1, 4, 8)
+PLAN_DRILL_SLACK = 64 << 20
+#: phase 7: the SLO controller's rate window, in 1-row latencies (three
+#: requests one at a time must fall inside it), and the admission gate's
+#: rate window (s), long enough that a burst's rate climbs one request
+#: at a time through the estimator's feasible range
+PLAN_RATE_WINDOWS = 4.0
+PLAN_GATE_WINDOW_S = 10.0
 
 
 class SmokeFailure(RuntimeError):
@@ -817,7 +853,8 @@ def phase_serving(torch, dev, model, params, first_s, smi):
     """Phase 5 (see the module docstring), on phase 4's yi-9b model and
     params.  Parts: 1 batched against one request per dispatch, on two
     GPU workers and again on one; 5 tracing of part 1's requests; 2 the
-    device-resident demux; 3 admission and deadlines; 4 faults."""
+    device-resident demux; 3 admission and deadlines; 4 faults.  Returns
+    part 1's numbers on one GPU worker."""
     from repro_torch.examples import decode_cascade as dc
     from repro_torch.obs.trace import Tracer
 
@@ -870,6 +907,7 @@ def phase_serving(torch, dev, model, params, first_s, smi):
               f"{held} held before the phase)", flush=True)
     finally:
         rt.stop()
+    return stats1
 
 
 def _part_tracing(dep, traces, t_sub, done):
@@ -1445,6 +1483,553 @@ def _part_check_cli():
           + ("" if res.returncode == 0 else f"\n{res.stdout}{res.stderr}"))
 
 
+# -- phase 7: profile, plan and replan full-width yi-9b ----------------------
+
+def phase_plan(torch, dev, model, params, first_s, served, smi):
+    """Phase 7 (see the module docstring), on phase 4's yi-9b model and
+    params and phase 5's one-worker batched numbers (``served``).  Parts:
+    the offline profile and the cost hooks' seed; ``propose`` at a sparse
+    and at phase 5's rate; the admission gate's estimator; the SLO
+    controller ticked by hand; a blue/green replan under one-row
+    traffic; a canary drill on a green with one weight changed; the
+    cost-based planner."""
+    from repro_torch.examples import decode_cascade as dc
+    from repro_torch.obs.trace import Tracer
+
+    hang = max(30.0, 20.0 * first_s)
+    toks = torch.randint(0, model.cfg.vocab_size, (SERVE_REQUESTS, SEQ),
+                         dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(SEED + 7))
+    rt = dc.Runtime(n_cpu=1, n_gpu=1, net=dc.NetModel(scale=0.0),
+                    max_batch=SERVE_BATCH, batch_wait_ms=SERVE_WAIT_MS,
+                    hang_timeout_s=hang, tracer=Tracer(sample_rate=1.0),
+                    device=dev)
+    print(f"  Runtime(n_gpu=1, max_batch={SERVE_BATCH}, batch_wait_ms="
+          f"{SERVE_WAIT_MS}, hang_timeout_s={hang})", flush=True)
+    out = {"card": smi}
+    try:
+        pre, dec = dc.build_ops(model, params, seq_len=SEQ, cache_len=CACHE,
+                                name=model.cfg.name)
+        dep = dc.build(rt, pre, dec, steps=STEPS, name="plan", batching=True)
+        alone = [dc.reference_decode(model, params, toks[i:i + 1].to(dev),
+                                     steps=STEPS, cache_len=CACHE)[0]
+                 for i in range(PLAN_PROMPTS)]
+        lats, got = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got.append(_tokens([dep.execute(_sample(torch, toks, 0))])[0])
+            lats.append(time.perf_counter() - t0)
+        one_row_s = min(lats[1:])
+        check(got == [alone[0]] * 3, f"1-row requests: tokens {got} == the "
+              f"unfused loop's {alone[0]}; steady latency {one_row_s} s "
+              f"(first {lats[0]} s)")
+        out["one_row_s"] = one_row_s
+        fp, out["profile"] = _plan_profile(torch, dev, dep, model,
+                                           _sample(torch, toks, 0))
+        slo = 2.0 * one_row_s
+        rate = served["batched"]["req_per_s"]
+        out["slo_s"], out["rate"] = slo, rate
+        out["propose"] = _plan_propose(dep, fp, slo, rate)
+        out["admission"] = _plan_admission(torch, rt, dep, model, params,
+                                           toks, fp, served)
+        out["controller"] = _plan_controller(torch, rt, dep, model, params,
+                                             toks, fp, slo, one_row_s)
+        out["blue_green"], blue_tok = _plan_blue_green(torch, dev, rt, dep,
+                                                       toks, alone)
+        out["canary_drill"] = _plan_drill(torch, dev, rt, dep, model, params,
+                                          toks, blue_tok)
+        out["planner"] = _plan_planner(torch, dev, rt, model, params, toks,
+                                       alone)
+        check(rt.pool.fault_counts["wedge"] == 0,
+              f"no wedge in the plan phase ({rt.pool.fault_counts})")
+    finally:
+        rt.stop()
+    print(f"  plan: {json.dumps(out)}", flush=True)
+
+
+def _chain_op_id(dep):
+    (node,) = dep.dag.nodes.values()
+    return node, node.plan_op_id
+
+
+def _plan_profile(torch, dev, dep, model, sample):
+    """Part 1: ``profile_plan`` over the compiled cascade and the cost
+    hooks' seed at ``PLAN_SWEEP``; bytes held to the shapes, launches to
+    the dispatches."""
+    from repro_torch.models import registry
+    from repro_torch.profiling import profile_plan
+    from repro_torch.profiling.profiler import seed_from_model_ops
+
+    L = model.cfg.num_layers
+    _, op_id = _chain_op_id(dep)
+    chain = dep.plan.op(op_id).op
+    d0 = (chain.batch_dispatches, chain.row_dispatches)
+    _zero_launches()
+    t0 = time.perf_counter()
+    fp = profile_plan(dep.plan, sample, batch_sizes=PLAN_SWEEP, runs=3,
+                      warmup=1)
+    sweep_s = time.perf_counter() - t0
+    launches = _launches()
+    d1 = (chain.batch_dispatches, chain.row_dispatches)
+    batched, rows = d1[0] - d0[0], d1[1] - d0[1]
+    want = expected_launches(model.cfg, batched + rows, STEPS)
+    check(launches == want, f"profile sweep {PLAN_SWEEP} x (1 warm-up + 3 "
+          f"runs) in {sweep_s} s: {batched} batched + {rows} per-row "
+          f"dispatches, launches {launches} == {want}")
+    curve = fp.curves[op_id]
+    _, _, leaves = registry._cache_layout(model, CACHE)
+    row_bytes = 8 + sum(t.numel() * t.element_size() for t in leaves)
+    check({b: st.out_bytes for b, st in curve.buckets.items()}
+          == {b: b * row_bytes + 64 for b in PLAN_SWEEP},
+          f"profiled out_bytes == rows x {row_bytes} bytes (tok, pos and the "
+          f"cache leaves, from their shapes) + 64 per table")
+    _zero_launches()
+    t0 = time.perf_counter()
+    seed = seed_from_model_ops(dep.plan, batch_sizes=PLAN_SWEEP)
+    seed_s = time.perf_counter() - t0
+    launches = _launches()
+    calls = 4 * len(PLAN_SWEEP)          # 1 warm-up + 3 runs per size
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flash_attention=L * calls,
+                decode_attention=L * STEPS * calls)
+    check(launches == want, f"cost-hook seed in {seed_s} s: launches "
+          f"{launches} == {want} (the prefill hook and {STEPS} decode hooks "
+          f"per size)")
+    sc = seed.curves[op_id]
+    check({b: st.out_bytes for b, st in sc.buckets.items()}
+          == {b: b * row_bytes for b in PLAN_SWEEP},
+          "seeded out_bytes == rows x the decode stage's output bytes")
+    buckets = {b: {"mean_s": st.mean_s, "p99_s": st.p99_s, "cv": st.cv,
+                   "out_bytes": st.out_bytes,
+                   "seeded_mean_s": sc.buckets[b].mean_s,
+                   "chain_over_seeded": st.mean_s / sc.buckets[b].mean_s}
+               for b, st in sorted(curve.buckets.items())}
+    res = {"sweep_s": sweep_s, "seed_s": seed_s, "buckets": buckets,
+           "per_row_s": curve.per_row_s,
+           "crossover_rows": curve.crossover_rows(),
+           "dispatches": {"batched": batched, "per_row": rows}}
+    for b, st in buckets.items():
+        print(f"  bucket {b}: mean {st['mean_s']} s, p99 {st['p99_s']} s, cv "
+              f"{st['cv']}, out_bytes {st['out_bytes']}; seeded stages "
+              f"{st['seeded_mean_s']} s, chain / seeded "
+              f"{st['chain_over_seeded']}", flush=True)
+    print(f"  per_row_s {curve.per_row_s}, crossover_rows "
+          f"{curve.crossover_rows()}", flush=True)
+    return fp, res
+
+
+def _plan_propose(dep, fp, slo, rate):
+    """Part 2: ``propose`` at a sparse rate and at phase 5's, each
+    compiled off the serving path; its bucket and lowering overrides
+    reach the compiled plan."""
+    from repro_torch.core.compiler import compile_flow
+    from repro_torch.core.lowering import BatchedJittedFuse
+    from repro_torch.profiling import propose
+
+    rt = dep.runtime
+    _, op_id = _chain_op_id(dep)
+    res = {}
+    for label, lam in (("sparse", PLAN_SPARSE_RATE), ("dense", rate)):
+        cfg = propose(dep.plan, slo, lam, profile=fp, net=rt.net)
+        print(f"  PlanConfig at {lam} req/s, SLO {slo} s: "
+              f"{json.dumps(cfg.to_dict())}", flush=True)
+        green = compile_flow(dep.flow, rt, plan_config=cfg,
+                             name=f"plan-{label}", register=False,
+                             **dep.compile_flags)
+        o, nc = green.plan.op(op_id), cfg.node(op_id)
+        batched = isinstance(o.op, BatchedJittedFuse)
+        check(batched == nc.batched_lowering and o.batchable == batched
+              and (not batched or (o.batch_buckets == nc.batch_buckets
+                                   == tuple(o.op.bucket_sizes))),
+              f"{label}: the compiled plan carries the config's lowering "
+              f"({'batched' if batched else 'per-row'}) and buckets "
+              f"{o.batch_buckets}")
+        rt.discard_dag(green.dag)
+        res[label] = cfg.to_dict()
+    return res
+
+
+def _plan_admission(torch, rt, dep, model, params, toks, fp, served):
+    """Part 3: the estimator's p99 at phase 5's rate for one and two GPU
+    workers beside phase 5's measured p99; then a burst above the
+    estimated capacity at a gate holding the plan and the profile: sheds
+    typed with the estimator's reason, admitted tokens held to a padded
+    oracle of their own batch."""
+    from repro_torch.profiling import NodeConfig, PlanConfig
+    from repro_torch.serving import (AdmissionController, DeadlineExceeded,
+                                     Overloaded)
+
+    name = dep.dag.name
+    node, op_id = _chain_op_id(dep)
+    rate = served["batched"]["req_per_s"]
+
+    def config(c):
+        return PlanConfig(nodes={op_id: NodeConfig(
+            max_batch=SERVE_BATCH, batch_buckets=tuple(dep.plan.op(op_id)
+                                                       .batch_buckets),
+            batch_wait_ms=SERVE_WAIT_MS, target_replicas=c)})
+
+    est = {c: AdmissionController(dep.plan, fp, config(c), net=rt.net)
+           ._estimate_p99(rate) for c in (1, 2)}
+    capacity = {c: _modeled_capacity(dep.plan, fp, config(c), rt.net)
+                for c in (1, 2)}
+    print(f"  estimator p99 at {rate} req/s: one GPU worker {est[1]} s, two "
+          f"{est[2]} s; phase 5 measured p99 {served['batched']['p99_ms']} "
+          f"ms (one worker); the estimator's capacity {capacity[1]} and "
+          f"{capacity[2]} req/s", flush=True)
+    gate = AdmissionController(dep.plan, fp, config(1), net=rt.net,
+                               window_s=PLAN_GATE_WINDOW_S)
+    # the first request of the burst sees one arrival in the window
+    deadline = 2.0 * gate._estimate_p99(1.0 / gate.window_s)
+    # twice what the estimator says one window can take
+    n = max(SERVE_REQUESTS, int(2 * capacity[1] * gate.window_s) + 1)
+    rt.set_admission(name, gate)
+    rt.tracer.clear()
+    idx = [j % len(toks) for j in range(n)]
+    futs, _, _, t_call = _burst(dep, toks, idx, deadline_s=deadline)
+    ok, shed = [], []
+    for j, f in enumerate(futs):
+        e = f.exception(600)
+        if e is None:
+            ok.append(j)
+        elif isinstance(e, Overloaded) and not isinstance(
+                e, DeadlineExceeded) and e.estimate_s is not None \
+                and e.reason in ("deadline_risk", "queue_depth"):
+            shed.append((j, e.reason, e.estimate_s))
+        else:
+            raise e
+    rt.set_admission(name, None)
+    check(ok and shed and ok == list(range(len(ok)))
+          and any(r == "deadline_risk" for _, r, _ in shed),
+          f"a burst of {n} (the estimated capacity is {capacity[1]} req/s "
+          f"over a {gate.window_s} s window), deadline {deadline} s "
+          f"(twice the estimate at one arrival in the window): "
+          f"{len(ok)} admitted, {len(shed)} shed typed (Overloaded) with "
+          f"the estimator's reasons {sorted({r for _, r, _ in shed})}")
+    got = _tokens([futs[j] for j in ok])
+    admitted = [t for t in _traces(rt.tracer, name, n) if not t.shed]
+    _check_batched_tokens(torch, model, params, toks, [idx[j] for j in ok],
+                          got,
+                          _batches(rt.tracer, admitted, node.name),
+                          "admitted requests")
+    return {"estimate_p99_s": {"1": est[1], "2": est[2]},
+            "measured_p99_s": served["batched"]["p99_ms"] / 1e3,
+            "capacity_req_s": {"1": capacity[1], "2": capacity[2]},
+            "deadline_s": deadline,
+            "burst": n, "admitted": len(ok),
+            "shed": [[j, r, e] for j, r, e in shed],
+            "shed_call_s_max": max(t_call[j] for j, _, _ in shed)}
+
+
+def _modeled_capacity(plan, fp, config, net):
+    """The largest arrival rate (req/s, in steps of 0.01 up to 100) below
+    the first one the estimator calls saturated for ``config``."""
+    from repro_torch.profiling import LatencyEstimator, Workload
+
+    est = LatencyEstimator(fp, net=net)
+    ok = 0.0
+    for k in range(1, 10001):
+        lam = k / 100.0
+        if not est.estimate(plan, config, Workload(lam)).feasible:
+            break
+        ok = lam
+    return ok
+
+
+def _plan_controller(torch, rt, dep, model, params, toks, fp, slo,
+                     one_row_s):
+    """Part 4: ``SLOController`` ticked by hand after a sparse phase (one
+    request at a time) and right after a burst of ``SERVE_REQUESTS``; a
+    hot-apply reaches the live batcher and builds no executable."""
+    from repro_torch.core.lowering import EXECUTABLE_CACHE
+    from repro_torch.profiling import SLOController
+
+    name = dep.dag.name
+    node, op_id = _chain_op_id(dep)
+    window = PLAN_RATE_WINDOWS * one_row_s
+    ctl = SLOController(rt, dep, slo, profile=fp, window_s=window)
+    events = []
+
+    def tick(what):
+        tr0 = EXECUTABLE_CACHE.traces()
+        ev = ctl.tick()
+        built = EXECUTABLE_CACHE.traces() - tr0
+        b = rt.batcher_for(name, node.name)
+        nc = ctl.applied.node(op_id) if ctl.applied else None
+        rec = {"after": what, "kind": ev.kind, "rate": ev.arrival_rate,
+               "applied": ev.detail.get("applied"),
+               "predicted_p99_ms": ev.detail.get("predicted_p99_ms"),
+               "current_p99_ms": ev.detail.get("current_p99_ms"),
+               "slo_ok": ev.detail.get("slo_ok"),
+               "config": nc and {"max_batch": nc.max_batch,
+                                 "batch_wait_ms": nc.batch_wait_ms,
+                                 "batch_buckets": list(nc.batch_buckets),
+                                 "batched_lowering": nc.batched_lowering,
+                                 "target_replicas": nc.target_replicas},
+               "batcher": b and [b.max_batch, b.max_wait * 1e3],
+               "executables_built": built}
+        print(f"  controller event: {json.dumps(rec)}", flush=True)
+        check(built == 0, f"tick after {what}: no executable built")
+        if ev.kind == "apply":
+            check(b is not None and b.max_batch == nc.max_batch
+                  and abs(b.max_wait * 1e3 - nc.batch_wait_ms) < 1e-9,
+                  f"the hot-apply reached the live batcher: max_batch "
+                  f"{b.max_batch}, window {b.max_wait * 1e3} ms")
+        events.append(rec)
+
+    for i in range(3):
+        _tokens([dep.execute(_sample(torch, toks, i))])
+    tick("3 requests one at a time")
+    # the sparse arrivals leave the controller's window before the burst
+    time.sleep(window)
+    rt.tracer.clear()
+    idx = list(range(SERVE_REQUESTS))
+    futs = _burst(dep, toks, idx)[0]
+    tick(f"a burst of {SERVE_REQUESTS} (in flight)")
+    got = _tokens(futs)
+    _check_batched_tokens(torch, model, params, toks, idx, got,
+                          _batches(rt.tracer, _traces(
+                              rt.tracer, name, SERVE_REQUESTS), node.name),
+                          "the burst across the ticks")
+    check(any(e["kind"] == "apply" for e in events),
+          f"a hot-apply among the events {[e['kind'] for e in events]}")
+    return events
+
+
+def _plan_blue_green(torch, dev, rt, dep, toks, alone):
+    """Part 5: a blue/green replan to a bucket set the live chain lacks
+    while a thread keeps sending one-row requests; no request fails, the
+    canary passes, the first 8 requests after the swap build nothing and
+    answer as blue did.  Returns the numbers and blue's tokens."""
+    import numpy as np
+
+    from repro_torch.core.lowering import EXECUTABLE_CACHE
+    from repro_torch.profiling import (BlueGreenReplanner, NodeConfig,
+                                       PlanConfig, replan)
+
+    node, op_id = _chain_op_id(dep)
+    proposal = PlanConfig(nodes={op_id: NodeConfig(
+        max_batch=SERVE_BATCH, batch_buckets=PLAN_GREEN_BUCKETS,
+        batch_wait_ms=SERVE_WAIT_MS, batched_lowering=True)})
+    check(tuple(dep.plan.op(op_id).op.bucket_sizes) != PLAN_GREEN_BUCKETS,
+          f"the proposal's buckets {PLAN_GREEN_BUCKETS} differ from the live "
+          f"chain's {tuple(dep.plan.op(op_id).op.bucket_sizes)}: a recompile")
+    n = PLAN_PROMPTS
+    blue_tok, blue_lat = [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        blue_tok.append(_tokens([dep.execute(_sample(torch, toks, i))])[0])
+        blue_lat.append(time.perf_counter() - t0)
+    check(blue_tok == alone, f"blue's one-row tokens == the unfused loop's "
+          f"{alone}")
+    stop, log, errors = threading.Event(), [], []
+
+    def sender():
+        i = 0
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            f = dep.execute(_sample(torch, toks, i % n))
+            try:
+                tok = int(f.result(600).rows[0].values[0])
+            except Exception as e:      # reported, and fails the check
+                errors.append(repr(e))
+                tok = None
+            log.append((t0, time.perf_counter(), i % n, tok))
+            i += 1
+
+    mem = {}
+    inner = replan.warm_deployment
+
+    def measured_warm(*a, **k):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        try:
+            return inner(*a, **k)
+        finally:
+            torch.cuda.synchronize(dev)
+            mem["warm_allocated_growth"] = \
+                torch.cuda.memory_allocated(dev) - held
+            mem["warm_peak_growth"] = \
+                torch.cuda.max_memory_allocated(dev) - held
+
+    blue_dag = dep.dag
+    th = threading.Thread(target=sender, daemon=True)
+    th.start()
+    _wait_for(lambda: len(log) >= 2, "two requests before the replan")
+    replan.warm_deployment = measured_warm
+    try:
+        t_r0 = time.perf_counter()
+        rep = BlueGreenReplanner(rt, dep,
+                                 sample=_sample(torch, toks, 0)).replan(
+            proposal)
+        t_r1 = time.perf_counter()
+    finally:
+        replan.warm_deployment = inner
+    _wait_for(lambda: any(t0 > t_r1 for t0, _, _, _ in log),
+              "a request after the swap")
+    stop.set()
+    th.join(600)
+    check(not th.is_alive(), "the sending thread ended")
+    check(rep.ok and rep.canary.get("ok") is True and dep.dag is not blue_dag
+          and rt.dags[dep.dag.name] is dep.dag,
+          f"replan {rep.phase}: canary {rep.canary}, swap to generation "
+          f"{rep.green_generation} (blue {rep.blue_generation}); warm "
+          f"{rep.warm.get('buckets')}, {rep.warm.get('fresh_traces')} "
+          f"executables built")
+    wrong = [(i, tok) for _, _, i, tok in log if tok != alone[i]]
+    check(not errors and not wrong, f"{len(log)} one-row requests across "
+          f"the replan: none failed ({errors}), none answered wrong "
+          f"({wrong})")
+    before = [t1 - t0 for t0, t1, _, _ in log if t1 <= t_r0]
+    during = [t1 - t0 for t0, t1, _, _ in log if t1 > t_r0 and t0 < t_r1]
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    tr0 = EXECUTABLE_CACHE.traces()
+    post_tok, post_lat = [], []
+    for i in range(8):
+        t0 = time.perf_counter()
+        post_tok.append(_tokens([dep.execute(
+            _sample(torch, toks, i % n))])[0])
+        post_lat.append(time.perf_counter() - t0)
+        if i == 0:
+            gc.collect()        # the request's result sits in a cycle
+            torch.cuda.synchronize(dev)
+            first_alloc = torch.cuda.memory_allocated(dev) - held
+            first_peak = torch.cuda.max_memory_allocated(dev) - held
+    built = EXECUTABLE_CACHE.traces() - tr0
+    check(built == 0, "fresh_traces == 0 over 8 post-swap requests")
+    want = [blue_tok[i % n] for i in range(8)]
+    if post_tok != want:
+        raise SmokeFailure(f"post-swap tokens {post_tok} != blue's {want}")
+    check(True, f"post-swap tokens == blue's for the same prompts {want}")
+
+    def p99(x):
+        return float(np.percentile(np.array(x), 99)) if x else None
+
+    res = {"timings_s": rep.timings_s, "warm": rep.warm, **mem,
+           "first_post_swap": {"latency_s": post_lat[0],
+                               "allocated_growth": first_alloc,
+                               "peak_growth": first_peak},
+           "post_swap_latency_s": post_lat,
+           "blue_steady_latency_s": min(blue_lat[1:]),
+           "requests_across": len(log),
+           "p99_before_s": p99(before), "p99_during_s": p99(during),
+           "during": len(during)}
+    print(f"  blue/green: compile {rep.timings_s.get('compile')} s, warm "
+          f"{rep.timings_s.get('warm')} s, canary "
+          f"{rep.timings_s.get('canary')} s; warm grew allocated "
+          f"{mem.get('warm_allocated_growth')} and peak "
+          f"{mem.get('warm_peak_growth')} bytes (one-row requests ran "
+          f"beside it); first post-swap request {post_lat[0]} s against "
+          f"blue's steady {min(blue_lat[1:])} s, grew allocated "
+          f"{first_alloc} and peak {first_peak} bytes; live p99 "
+          f"{p99(during)} s during the replan ({len(during)} requests) "
+          f"against {p99(before)} s before ({len(before)})", flush=True)
+    return res, blue_tok
+
+
+def _one_weight_changed(params):
+    """The params with the first element of layer 0's key projection
+    scaled by 1.5; only that leaf is copied."""
+    blocks = dict(params["blocks"])
+    b0 = dict(blocks["0"])
+    attn = dict(b0["attn"])
+    attn["wk"] = attn["wk"].clone()
+    attn["wk"].view(-1)[0] *= 1.5
+    b0["attn"] = attn
+    blocks["0"] = b0
+    return dict(params, blocks=blocks)
+
+
+def _plan_drill(torch, dev, rt, dep, model, params, toks, blue_tok):
+    """Part 6: a green whose decode op holds params with one weight
+    changed: the canary aborts the replan with a mismatch, blue keeps
+    answering as before, green's batchers are closed and the card's
+    allocated bytes return to within ``PLAN_DRILL_SLACK`` of their value
+    before the attempt."""
+    import copy
+
+    from repro_torch.examples import decode_cascade as dc
+    from repro_torch.profiling import (BlueGreenReplanner, NodeConfig,
+                                       PlanConfig)
+
+    name = dep.dag.name
+    _, op_id = _chain_op_id(dep)
+    pre, _ = dc.build_ops(model, params, seq_len=SEQ, cache_len=CACHE,
+                          name=model.cfg.name, measure=False)
+    _, bad_dec = dc.build_ops(model, _one_weight_changed(params),
+                              seq_len=SEQ, cache_len=CACHE,
+                              name=model.cfg.name, measure=False)
+    drill = copy.copy(dep)
+    drill.flow = dc.build_flow(pre, bad_dec, steps=STEPS, batching=True)
+    blue_dag = dep.dag
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    held = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    rep = BlueGreenReplanner(rt, drill, sample=_sample(torch, toks, 0)) \
+        .replan(PlanConfig(nodes={op_id: NodeConfig(
+            max_batch=SERVE_BATCH, batch_buckets=PLAN_SWEEP,
+            batch_wait_ms=SERVE_WAIT_MS, batched_lowering=True)}))
+    drill_s = time.perf_counter() - t0
+    err = str(rep.canary.get("error"))
+    check(not rep.ok and rep.phase == "canary" and "mismatch" in err,
+          f"the replan aborted in {drill_s} s: {rep.reason}")
+    check(dep.dag is blue_dag and rt.dags[name] is blue_dag
+          and _tokens([dep.execute(_sample(torch, toks, 1))])[0]
+          == blue_tok[1], "blue stays live and answers as before")
+    _wait_for(lambda: rt.sweep_retired() == 0, "green's batchers drained")
+    with rt._batchers_lock:
+        gens = {k[1] for k in rt._batchers if k[0] == name}
+    check(rep.green_generation not in gens and not rt._retired_batchers,
+          f"green's batchers (generation {rep.green_generation}) closed; "
+          f"live generations {sorted(gens)}")
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    after = torch.cuda.memory_allocated(dev)
+    check(abs(after - held) <= PLAN_DRILL_SLACK,
+          f"discard_dag: allocated {after} bytes within "
+          f"{PLAN_DRILL_SLACK} of the {held} before the attempt")
+    return {"seconds": drill_s, "error": err, "timings_s": rep.timings_s,
+            "allocated_before": held, "allocated_after": after}
+
+
+def _plan_planner(torch, dev, rt, model, params, toks, alone):
+    """Part 7: ``auto_deploy`` of the cascade flow with a 1-row sample on
+    the card: the plan's flags, notes and per-node cv (the profile keeps
+    the reference's ``warmup=0``), and the deployed flow's tokens."""
+    from repro_torch.core.planner import auto_deploy
+    from repro_torch.core.table import Table
+    from repro_torch.examples import decode_cascade as dc
+
+    pre, dec = dc.build_ops(model, params, seq_len=SEQ, cache_len=CACHE,
+                            name=model.cfg.name, measure=False)
+    fl = dc.build_flow(pre, dec, steps=STEPS)
+    sample = Table([("tokens", torch.Tensor)], [(toks[0].to(dev),)])
+    t0 = time.perf_counter()
+    dep, plan = auto_deploy(fl, rt, sample, runs=3)
+    plan_s = time.perf_counter() - t0
+    profiles = {str(k): {"mean_s": p.mean_s, "cv": p.cv,
+                         "out_bytes": p.out_bytes}
+                for k, p in sorted(plan.profiles.items())}
+    print(f"  planner in {plan_s} s: flags {json.dumps(plan.flags)}; notes "
+          f"{json.dumps(plan.notes)}; profiles {json.dumps(profiles)}",
+          flush=True)
+    t0 = time.perf_counter()
+    got = _tokens([dep.execute(sample)])
+    serve_s = time.perf_counter() - t0
+    check(got == [alone[0]], f"auto-deployed cascade ({len(dep.plan.ops)} "
+          f"ops) answers {got} == the unfused loop's [{alone[0]}] in "
+          f"{serve_s} s")
+    return {"seconds": plan_s, "flags": plan.flags, "notes": plan.notes,
+            "replicas": {str(k): v for k, v in plan.replicas.items()},
+            "profiles": profiles, "ops": len(dep.plan.ops),
+            "serve_s": serve_s}
+
+
 def kernel_vs_plain(torch, dev, cfg, params, toks):
     """Logits rel err of the kernel path against the plain path on the
     same params and prompts: (prefill, first decode step).  Checks that
@@ -1559,11 +2144,15 @@ def main() -> int:
     print("== serving", flush=True)
     _release(torch)
     yi = served.pop("yi-9b")
-    phase_serving(torch, dev, *yi, smi=smi)
+    one_worker = phase_serving(torch, dev, *yi, smi=smi)
     _release(torch)
 
     print("== compile", flush=True)
     phase_compile(torch, dev, *yi, smi=smi)
+    _release(torch)
+
+    print("== plan", flush=True)
+    phase_plan(torch, dev, *yi, served=one_worker, smi=smi)
     del yi
     _release(torch)
     keys = ["name", "route", "source", "replaces", "launches",

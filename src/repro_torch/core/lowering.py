@@ -384,6 +384,23 @@ def chain_signature(chain_ops: List[ops.Operator]) -> Tuple[Any, ...]:
     return _chain_steps(chain_ops)
 
 
+def crossover_from_costs(per_row_s: Optional[float],
+                         batched_s: Dict[int, float],
+                         max_n: int = 1024) -> Optional[int]:
+    """THE crossover rule, shared by the live router (``ChainProfile``)
+    and the offline profiler's ``OpLatencyCurve``: the smallest batch size
+    n at which one batched dispatch at n's covering measured bucket beats
+    n per-row dispatches, or None while either path is unmeasured."""
+    if per_row_s is None or not batched_s:
+        return None
+    measured = sorted(batched_s)
+    for n in range(1, min(max_n, measured[-1]) + 1):
+        b = next((batched_s[m] for m in measured if m >= n), None)
+        if b is not None and n * per_row_s >= b:
+            return n
+    return None
+
+
 class ChainProfile:
     """Measured execution costs of one chain, feeding the exec-path router.
 
@@ -458,6 +475,60 @@ class ChainProfile:
                 return n <= self.PROBE_ROW_CAP, True   # refresh per-row
             self._since_probe[bucket] = seen
             return prefer, False
+
+    def route_per_row(self, n: int, bucket: int) -> bool:
+        return self.route_decision(n, bucket)[0]
+
+    def crossover_rows(self, max_n: int = 1024) -> Optional[int]:
+        """Smallest batch size at which the batched path is measured to
+        win, or None while either path is unmeasured.  Candidate buckets
+        are the measured ones."""
+        with self._lock:
+            per_row_s = self.per_row_s
+            batched_s = dict(self.batched_s)
+        return crossover_from_costs(per_row_s, batched_s, max_n)
+
+    # -- serialization (profiler persistence across processes) ---------------
+    def to_dict(self) -> Dict[str, Any]:
+        """JSON-serializable state: the EWMAs and sample counts the router
+        needs, bucket keys as strings (``from_dict`` restores ints)."""
+        with self._lock:
+            return {
+                "alpha": self.alpha,
+                "per_row_s": self.per_row_s,
+                "per_row_samples": self.per_row_samples,
+                "batched_s": {str(b): s for b, s in self.batched_s.items()},
+                "batched_samples": {str(b): n for b, n
+                                    in self.batched_samples.items()},
+            }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ChainProfile":
+        p = cls(alpha=float(d.get("alpha", 0.3)))
+        per_row = d.get("per_row_s")
+        p.per_row_s = float(per_row) if per_row is not None else None
+        p.per_row_samples = int(d.get("per_row_samples", 0))
+        p.batched_s = {int(b): float(s)
+                       for b, s in (d.get("batched_s") or {}).items()}
+        p.batched_samples = {int(b): int(n)
+                             for b, n in (d.get("batched_samples") or {})
+                             .items()}
+        return p
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            per_row_s = self.per_row_s
+            per_row_samples = self.per_row_samples
+            batched_s = dict(self.batched_s)
+            batched_samples = dict(self.batched_samples)
+        return {
+            "per_row_ms": (per_row_s * 1e3
+                           if per_row_s is not None else None),
+            "per_row_samples": per_row_samples,
+            "batched_ms": {b: s * 1e3 for b, s in sorted(batched_s.items())},
+            "batched_samples": dict(sorted(batched_samples.items())),
+            "crossover_rows": self.crossover_rows(),
+        }
 
 
 class ExecutableCache:
@@ -773,6 +844,37 @@ class BatchedJittedFuse(JittedFuse):
 
     def apply(self, tables: List[Table], ctx=None) -> Table:
         return self.apply_batched(tables, ctx)
+
+    # -- cache warming (blue/green replanning) -------------------------------
+    def warm(self, tables: List[Table], ctx=None, *,
+             emit_device: bool = False, donate_out: bool = False):
+        """Execute the chain once with the exec-path router bypassed
+        (always the batched callable), so this call builds the batch's
+        bucket entry in ``EXECUTABLE_CACHE`` whatever the measured
+        crossover would route.  Same contract as ``apply_batched``; a
+        singleton input still takes the per-row path, exactly the path a
+        live singleton takes."""
+        with forced_batched_routing([self]):
+            return self.apply_batched(tables, ctx, emit_device=emit_device,
+                                      donate_out=donate_out)
+
+
+@contextlib.contextmanager
+def forced_batched_routing(chain_ops):
+    """Temporarily disable adaptive exec-path routing on the given lowered
+    chains, so every multi-row call takes the batched callable (the
+    cache-warming walk must build the batched path at every bucket even
+    where the live router would route small batches per row).  Restores
+    each chain's previous routing flag on exit."""
+    prev = [(o, o.adaptive_routing) for o in chain_ops
+            if isinstance(o, BatchedJittedFuse)]
+    for o, _ in prev:
+        o.adaptive_routing = False
+    try:
+        yield
+    finally:
+        for o, flag in prev:
+            o.adaptive_routing = flag
 
 
 def lower_fuse(fuse: ops.Fuse, *, batched: bool = False,

@@ -152,8 +152,7 @@ class ModelOp(Map):
       so plans and explain output say *which* model runs where;
     * cost hook: ``cost_hook(batch_size) -> {"mean_s", "p99_s", "cv",
       "runs", "out_bytes"}`` measures (or estimates) the stage at a batch
-      size, for the profiler (not ported yet; stages built by the port
-      leave it None).
+      size, for the profiler (``profiling.profiler.seed_from_model_ops``).
 
     Built by ``repro_torch.models.registry.model_stage_op``; attach to a
     flow with ``Node.apply_op``."""

@@ -5,7 +5,7 @@ names it (the tests do); a missing card is an error, never a silent move
 to the CPU."""
 from __future__ import annotations
 
-from typing import Union
+from typing import Any, Iterable, Union
 
 import torch
 
@@ -21,3 +21,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
     return dev
+
+
+def synchronize(tensors: Iterable[Any]) -> None:
+    """Wait for the queued work of every CUDA device that holds one of
+    ``tensors`` (other values are skipped).  Host-side timings need it:
+    a CUDA call returns at launch.  An error the device reports surfaces
+    here and propagates."""
+    devices = {t.device for t in tensors
+               if isinstance(t, torch.Tensor) and t.device.type == "cuda"}
+    for dev in devices:
+        torch.cuda.synchronize(dev)

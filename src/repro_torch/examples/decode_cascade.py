@@ -50,14 +50,19 @@ CACHE = 32
 STEPS = 4
 
 
-def build_ops(model, params, *, cache_len=CACHE, name=ARCH):
+def build_ops(model, params, *, seq_len=SEQ, cache_len=CACHE, name=ARCH,
+              measure=True):
     """(prefill op, decode op).  The decode op is ONE instance reused at
     every cascade position, so recompiles share step function identity
-    (stable chain signatures -> zero re-traces)."""
+    (stable chain signatures -> zero re-traces).  With ``measure`` each
+    op carries the cost hook that times its stage at ``seq_len`` tokens
+    and ``cache_len`` slots (``seed_from_model_ops`` calls it)."""
     pre = model_stage_op(model, params, "prefill", model_name=name,
-                         cache_len=cache_len)
+                         seq_len=seq_len, cache_len=cache_len,
+                         measure=measure)
     dec = model_stage_op(model, params, "decode", model_name=name,
-                         cache_len=cache_len)
+                         seq_len=seq_len, cache_len=cache_len,
+                         measure=measure)
     return pre, dec
 
 

@@ -35,7 +35,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.models import rglru, rwkv6, transformer
 
 _FAMILY_MODULES = {"dense": transformer, "ssm": rwkv6, "hybrid": rglru}
@@ -150,11 +150,48 @@ def _cache_layout(model: Model, cache_len: int):
     return [p for p, _ in l1], axes, [a for _, a in l1]
 
 
+def _timing_hook(batched, arg_maker, *, runs: int = 3, warmup: int = 1):
+    """Per-bucket cost hook: measure the natively batched stage at batch
+    size ``b``.  Feeds ``profiling.profiler.seed_from_model_ops`` ->
+    ``OpLatencyCurve`` buckets.  Each timed call ends in a synchronise of
+    the devices holding its outputs (a CUDA call returns at launch);
+    ``out_bytes`` is ``numel x element_size`` over the output columns
+    (the stage returns a flat tuple of tensors).  Building the hook
+    measures nothing: only calling it does."""
+    import statistics
+    import time
+
+    def hook(b: int) -> Dict[str, Any]:
+        args = arg_maker(b)
+        out = None
+        for _ in range(warmup):
+            out = batched(*args)
+            synchronize(out)
+        ts = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            out = batched(*args)
+            synchronize(out)
+            ts.append(time.perf_counter() - t0)
+        mean = sum(ts) / len(ts)
+        cv = (statistics.stdev(ts) / mean) if len(ts) > 1 and mean > 0 \
+            else 0.0
+        ob = int(sum(x.numel() * x.element_size() for x in out))
+        return {"mean_s": mean, "p99_s": max(ts), "cv": cv,
+                "runs": len(ts), "out_bytes": ob}
+
+    return hook
+
+
 def model_stage_op(model: Model, params, stage: str, *,
-                   model_name: str = "model", cache_len: int = 64):
+                   model_name: str = "model", seq_len: int = 32,
+                   cache_len: int = 64, measure: bool = True,
+                   runs: int = 3):
     """Build a ``ModelOp`` for one serving stage of ``model`` (see module
-    comment for the row-wise column contracts).  ``cache_len`` fixes the
-    decode cache geometry."""
+    comment for the row-wise column contracts).  ``seq_len``/``cache_len``
+    fix the token/cache geometry (the cost hook measures at exactly these
+    shapes; the op itself serves any row shape the flow feeds it).
+    ``measure=False`` skips attaching the timing cost hook."""
     from repro_torch.core import operators as ops
 
     paths, batch_axes, _ = _cache_layout(model, cache_len)
@@ -181,6 +218,10 @@ def model_stage_op(model: Model, params, stage: str, *,
 
         fn = _stage_fn(f"{model_name}_prefill", ("tokens",), batched,
                        2 + len(paths))
+
+        def arg_maker(b):
+            return (torch.zeros((b, seq_len), dtype=torch.int32,
+                                device=model.device),)
     elif stage == "decode":
         def batched(tok, pos, *leaves):
             logits, new_cache = model.decode_step(params, tok[:, None], pos,
@@ -190,10 +231,16 @@ def model_stage_op(model: Model, params, stage: str, *,
 
         fn = _stage_fn(f"{model_name}_decode", tuple(state_names), batched,
                        2 + len(paths))
+
+        def arg_maker(b):
+            zeros = torch.zeros((b,), dtype=torch.int32, device=model.device)
+            return (zeros, zeros.clone(),
+                    *_split(model.init_cache(b, cache_len)))
     else:
         raise ValueError(f"unknown stage {stage!r} (prefill | decode)")
+    hook = _timing_hook(batched, arg_maker, runs=runs) if measure else None
     return ops.ModelOp(fn=fn, names=list(state_names),
-                       model_name=model_name, stage=stage)
+                       model_name=model_name, stage=stage, cost_hook=hook)
 
 
 def stage_input_specs(model: Model, stage: str, *, seq_len: int = 32,

@@ -1,14 +1,15 @@
 """Serving-layer building blocks: request batching, overload protection
 (admission control, request classes, deadlines), and fault tolerance
 (typed retries, fault injection, straggler hedging).  Port of the
-reference package's ``serving/`` without ``engine`` (ROADMAP.md §4.5)
-and without the admission gate's estimator (§4.3).
+reference package's ``serving/`` without ``engine`` (ROADMAP.md §1,
+item 4).
 
 * :mod:`repro_torch.serving.batcher` — deadline-aware micro-batching
   (``Batcher``): adaptive coalescing windows, earliest-deadline-first
   backlog ordering, pre-dispatch expiry;
 * :mod:`repro_torch.serving.admission` — the front-door gate
-  (``AdmissionController``): per-class token buckets plus live
+  (``AdmissionController``): per-class token buckets, the
+  priority-ordered estimator gate (``profiling.estimator``), live
   executor queue depth priced per queued item, typed ``Overloaded`` /
   ``DeadlineExceeded`` fast-fail errors, and ``DegradePolicy``-based
   degraded serving for low-priority traffic;

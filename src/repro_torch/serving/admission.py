@@ -1,11 +1,5 @@
-"""Deadline-aware admission control: the front door's overload valve.
-Port of the reference package's ``serving/admission.py``, less its
-estimator gate: the M/M/c critical-path model lives in ``profiling/``,
-which the port has not ported yet (``ROADMAP.md`` §4.3).  A gate given a
-``plan`` AND a ``profile`` therefore raises ``NotImplementedError``
-instead of quietly admitting everything; without them it behaves as the
-reference does (no estimate, the queue penalty priced at
-``queue_cost_s`` or the 1 ms floor).
+"""Deadline-aware admission control: the front door's overload valve
+(port of the reference package's ``serving/admission.py``).
 
 An overloaded deployment that just queues is worse than useless — every
 queued request blows its deadline AND inflates the queue for the requests
@@ -53,15 +47,6 @@ from typing import Deque, Dict, Optional, Tuple
 from repro_torch.core.lowering import DegradePolicy
 from repro_torch.obs import keys as okeys
 from repro_torch.obs.clock import now as _mono
-
-
-def _refuse_model(plan, profile) -> None:
-    """Refuse a plan + profile: the estimator that would read them is not
-    ported, and ignoring them would turn the gate permissive in silence."""
-    if plan is not None and profile is not None:
-        raise NotImplementedError(
-            "admission with a plan and a profile needs the latency "
-            "estimator of profiling/, not ported yet (ROADMAP.md §4.3)")
 
 
 class Overloaded(RuntimeError):
@@ -196,14 +181,11 @@ class AdmissionController:
         # (lam_used, p99_s, computed_at) per priority level
         self._est_cache: Dict[int, Tuple[float, float, float]] = {}
         self.counters: Dict[str, int] = collections.defaultdict(int)
-        _refuse_model(plan, profile)
 
     # -- live-state refresh --------------------------------------------------
     def update(self, plan=None, profile=None, config=None) -> None:
         """Point the gate at the model of the NOW-live deployment (called
         after hot-applies and blue/green swaps)."""
-        _refuse_model(plan if plan is not None else self.plan,
-                      profile if profile is not None else self.profile)
         with self._lock:
             if plan is not None:
                 self.plan = plan
@@ -268,10 +250,14 @@ class AdmissionController:
         return p99
 
     def _estimate_p99(self, lam: float) -> float:
-        # with no plan and profile there is nothing to model against:
-        # permissive, as in the reference; with both, refuse
-        _refuse_model(self.plan, self.profile)
-        return 0.0
+        if self.plan is None or self.profile is None:
+            return 0.0           # nothing to model against: permissive
+        from repro_torch.profiling.estimator import (LatencyEstimator,
+                                                     Workload)
+        est = LatencyEstimator(self.profile, net=self.net)
+        cfg = self.config if self.config is not None else _DEFAULT_CONFIG
+        return est.estimate(self.plan, cfg,
+                            Workload(arrival_rate=max(lam, 1e-6))).p99_s
 
     def _queue_penalty(self, now: float) -> float:
         """Extra expected wait implied by the backlog already sitting in
@@ -301,8 +287,22 @@ class AdmissionController:
         cached = getattr(self, "_btl_cost", None)
         if cached is not None:
             return cached
-        _refuse_model(self.plan, self.profile)
         cost = 1e-3              # permissive floor with nothing to model
+        if self.plan is not None and self.profile is not None:
+            cfg = self.config if self.config is not None \
+                else _DEFAULT_CONFIG
+            worst = 0.0
+            for o in getattr(self.plan, "ops", ()):
+                curve = self.profile.curves.get(o.op_id)
+                if curve is None:
+                    continue
+                nc = cfg.node(o.op_id)
+                c = max(1, int(getattr(nc, "target_replicas", 1) or 1))
+                b = max(1, int(getattr(nc, "max_batch", 1) or 1))
+                per_item = curve.service_s(b) / (b * c)
+                worst = max(worst, per_item)
+            if worst > 0.0:
+                cost = worst
         self._btl_cost = cost
         return cost
 
@@ -379,3 +379,21 @@ class AdmissionController:
 
 
 _BOTTOM = ClassPolicy("_bottom", priority=-(10 ** 9))
+
+
+class _DefaultNodeConfig:
+    max_batch = 1
+    batch_wait_ms = 0.0
+    batched_lowering = True
+    target_replicas = 1
+    competitive_replicas = 0
+
+
+class _DefaultConfig:
+    nodes: Dict[int, object] = {}
+
+    def node(self, op_id: int):
+        return _DefaultNodeConfig
+
+
+_DEFAULT_CONFIG = _DefaultConfig()

@@ -572,9 +572,10 @@ def test_cli_exit_codes(tmp_path, capsys):
 def test_cli_lints_the_port_examples_clean(capsys):
     assert tcli.main([]) == 0
     out = capsys.readouterr().out
-    assert "checked 4 flow(s): 0 error(s)" in out
-    for name in ("decode-cascade", "decode-cascade-competitive",
-                 "recommender", "recommender-unopt"):
+    assert "checked 5 flow(s): 0 error(s)" in out
+    for name in ("auto-optimize", "decode-cascade",
+                 "decode-cascade-competitive", "recommender",
+                 "recommender-unopt"):
         assert f"{name}: clean" in out
 
 

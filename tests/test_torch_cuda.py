@@ -751,3 +751,113 @@ def test_competitive_cascade_on_card_under_hangs(dev):
         rt.stop()
     assert got == [dc.reference_decode(plain, params, toks[i:i + 1].to(dev))[0]
                    for i in range(6)]
+
+
+# -- profiling on the card ----------------------------------------------------
+
+def test_timing_hook_synchronises_the_card_and_counts_bytes(dev,
+                                                            monkeypatch):
+    """The decode stage's cost hook on the card: its bytes are the
+    output's ``numel x element_size``, each timed call ends in a
+    synchronise of the card, and an error the card reports there
+    propagates out of the hook."""
+    from repro_torch.examples import decode_cascade as dc
+    from repro_torch.models import registry
+
+    cfg, model, params, _ = _tiny_yi(dev)
+    _, dec = dc.build_ops(model, params)
+    _, _, leaves = registry._cache_layout(model, dc.CACHE)
+    row = 8 + sum(t.numel() * t.element_size() for t in leaves)
+    synced = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda d=None: (synced.append(d), real(d))[1])
+    got = dec.cost_hook(4)
+    assert got["out_bytes"] == 4 * row and got["runs"] == 3
+    assert got["mean_s"] > 0 and len(synced) == 4    # warm-up + 3 runs
+    assert all(torch.device(d).type == "cuda" for d in synced)
+
+    def failing(d=None):
+        raise RuntimeError("CUDA error: an illegal memory access")
+    monkeypatch.setattr(torch.cuda, "synchronize", failing)
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        dec.cost_hook(1)
+
+
+def test_profiler_sync_waits_for_the_card_and_propagates(dev, monkeypatch):
+    """``profile_plan`` times a chain on the card to the end of its device
+    work; a synchronise that fails is not swallowed."""
+    from repro_torch.core.ir import PhysicalPlan
+    from repro_torch.core.passes import build_pipeline
+    from repro_torch.core.table import Table
+    from repro_torch.examples import decode_cascade as dc
+    from repro_torch.profiling import profile_plan, profiler
+
+    cfg, model, params, _ = _tiny_yi(dev)
+    pre, dec = dc.build_ops(model, params, measure=False)
+    plan = build_pipeline(fusion=True, device=dev).run(
+        PhysicalPlan.from_dataflow(dc.build_flow(pre, dec, batching=True)))
+    toks = torch.randint(0, cfg.vocab_size, (dc.SEQ,), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(2))
+    sample = Table([("tokens", torch.Tensor)], [(toks,)])
+    fp = profile_plan(plan, sample, batch_sizes=(1, 2), runs=2)
+    (curve,) = fp.curves.values()
+    assert sorted(curve.buckets) == [1, 2] and curve.per_row_s > 0
+    cols = Table([("x", torch.Tensor)], [(torch.ones(4, device=dev),)])
+
+    def failing(d=None):
+        raise RuntimeError("CUDA error: unspecified launch failure")
+    monkeypatch.setattr(torch.cuda, "synchronize", failing)
+    with pytest.raises(RuntimeError, match="launch failure"):
+        profiler._sync(cols)
+
+
+def test_warm_deployment_pays_the_allocator_growth_before_traffic(dev):
+    """On the card a cold bucket costs allocator growth: the warm walk
+    pays it, and the first request at a warmed bucket allocates no more
+    than the walk's peak and builds no executable."""
+    from repro_torch.core.compiler import compile_flow
+    from repro_torch.core.lowering import EXECUTABLE_CACHE
+    from repro_torch.core.table import Table
+    from repro_torch.examples import decode_cascade as dc
+    from repro_torch.profiling import NodeConfig, PlanConfig, warm_deployment
+
+    cfg, model, params, plain = _tiny_yi(dev)
+    toks = torch.randint(0, cfg.vocab_size, (4, dc.SEQ), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(3))
+    rt = dc.Runtime(n_cpu=1, n_gpu=1, net=dc.NetModel(scale=0.0),
+                    max_batch=4)
+    try:
+        pre, dec = dc.build_ops(model, params, measure=False)
+        fl = dc.build_flow(pre, dec, batching=True)
+        probe = compile_flow(fl, rt, fusion=True, name="probe")
+        (node,) = probe.dag.nodes.values()
+        cfg4 = PlanConfig(nodes={node.plan_op_id: NodeConfig(
+            max_batch=4, batch_buckets=(1, 2, 4), batched_lowering=True)})
+        green = compile_flow(fl, rt, fusion=True, plan_config=cfg4,
+                             name="green", register=False)
+        def baseline():
+            gc.collect()            # results in reference cycles
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            return torch.cuda.memory_allocated(dev)
+
+        held = baseline()
+        w = warm_deployment(rt, green, Table([("tokens", torch.Tensor)],
+                                             [(toks[0],)]))
+        torch.cuda.synchronize(dev)
+        warm_growth = torch.cuda.max_memory_allocated(dev) - held
+        assert not w["errors"] and w["buckets"] == [1, 2, 4]
+        assert warm_growth > 0
+        held = baseline()
+        traces0 = EXECUTABLE_CACHE.traces()
+        out = rt.call_dag_object(green.dag, Table(
+            [("tokens", torch.Tensor)], [(t,) for t in toks])).result(60)
+        torch.cuda.synchronize(dev)
+        assert torch.cuda.max_memory_allocated(dev) - held <= warm_growth
+        assert EXECUTABLE_CACHE.traces() == traces0
+    finally:
+        rt.stop()
+    want = [dc.reference_decode(plain, params, toks[i:i + 1].to(dev))[0]
+            for i in range(4)]
+    assert [int(r.values[0]) for r in out.rows] == want

@@ -59,8 +59,9 @@ TORCH = types.SimpleNamespace(Flow=TFlow, Plan=TPlan, Table=TTable,
 
 
 class StandInConfig:
-    """A duck-typed plan config (the SLO optimizer's ``PlanConfig`` is not
-    ported yet): the same instance drives both packages' passes."""
+    """A duck-typed plan config: the same instance drives both packages'
+    passes (each package's own ``PlanConfig`` is held to the other in
+    ``test_apply_plan_config_pass_matches_reference``)."""
 
     def __init__(self, placements=None, replicas=None, buckets=None,
                  batched=None, max_batch=None):
@@ -273,15 +274,18 @@ def test_fuse_lookups_pass_annotates_for_locality():
 
 @pytest.mark.parametrize("kernel", [False, True])
 def test_apply_plan_config_pass_matches_reference(kernel):
-    cfg = StandInConfig(placements={1: "cpu", 3: "gpu"},
-                        replicas={2: 3}, buckets={3: (1, 4)},
-                        batched={2: False})
+    """Each package's own ``PlanConfig``, built from one dict."""
+    from repro.profiling import PlanConfig as JPlanConfig
+    from repro_torch.profiling import PlanConfig as TPlanConfig
+    cfg = {"nodes": {"1": {"placement": "cpu"},
+                     "2": {"competitive_replicas": 3,
+                           "batched_lowering": False},
+                     "3": {"placement": "gpu", "batch_buckets": [1, 4]}}}
     fj, ft = _flow_pair(_tensor_flow, kernel=kernel)
-
-    def stamp(P):
-        return P.passes.ApplyPlanConfigPass(cfg)
-    pj = _run_pass(JAX, fj, stamp)
-    pt = _run_pass(TORCH, ft, stamp)
+    pj = _run_pass(JAX, fj, lambda P: P.passes.ApplyPlanConfigPass(
+        JPlanConfig.from_dict(cfg)))
+    pt = _run_pass(TORCH, ft, lambda P: P.passes.ApplyPlanConfigPass(
+        TPlanConfig.from_dict(cfg)))
     assert plan_view(pt) == plan_view(pj)
     assert pt.op(1).placement == "cpu"
     assert pt.op(2).replicas == 3 and pt.op(2).high_variance

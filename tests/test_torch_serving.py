@@ -211,18 +211,6 @@ def test_admission_decisions_match(clock):
     assert {"ok", "rate_limit", "queue_depth"} <= reasons
 
 
-def test_admission_with_plan_and_profile_is_not_ported():
-    """The estimator gate needs profiling/ (ROADMAP §4.3): the port
-    refuses a plan + profile instead of admitting everything."""
-    with pytest.raises(NotImplementedError, match="4.3"):
-        t_adm.AdmissionController(plan=object(), profile=object())
-    gate = t_adm.AdmissionController(plan=object())
-    with pytest.raises(NotImplementedError, match="4.3"):
-        gate.update(profile=object())
-    # one of the two alone is what the reference runs without a model
-    assert gate.admit("interactive", 0.1).action == "admit"
-
-
 # -- metric keys --------------------------------------------------------------
 
 def test_metric_key_strings_match():
