@@ -17,7 +17,12 @@ ignored):
    take (the bound).  For all four kernels (and SDPA) also the device
    work alone (``device_ms``, see ``time_ms``) and the host time per
    call.  yi-9b: H=32, K=4, hd=128; decode B=4 over a
-   1024-slot ring cache with empty -1 slots, flash B=4, S=256.  rwkv6-
+   1024-slot ring cache with empty -1 slots, flash B=4, S=256.  gemma2-
+   9b (H=16, K=8, hd=256, softcap 50, window 4096, scale 1/16): flash
+   [1, 16, 8192, 256] causal on the SIMT instance (asserted), decode B=4
+   over a 4096-slot ring that has wrapped (``phase_gemma2_kernels``);
+   SDPA has no softcap, so these rows' ``library_ms`` is null and SDPA's
+   time without the softcap is recorded beside it.  rwkv6-
    1.6b: wkv6 at r/k/v/w [4, 256, 32, 64].  recurrentgemma-2b:
    rglru_scan at [4, 256, 2560].  Asserts that flash ran its tensor-core
    (``wgmma``) instance in bf16 and its SIMT instance in f32, that the
@@ -25,8 +30,9 @@ ignored):
    tiles of 4 x 4 of S, 16 lanes a column group, cp.async staging;
    rglru_scan: clusters of 2 blocks of 4 warps along T, staged), and
    prints decode's split count.
-4. Paths: yi-9b (48 layers), rwkv6-1.6b (24) and recurrentgemma-2b (26)
-   at full width and depth in bf16 with ``use_kernels=True``, random
+4. Paths: gemma2-9b (42 layers), yi-9b (48), rwkv6-1.6b (24) and
+   recurrentgemma-2b (26) at full width and depth in bf16 with
+   ``use_kernels=True``, random
    weights from a seeded generator, each a prefill + 8 decode
    ``ModelOp`` cascade through ``Dataflow`` -> ``compile_flow`` ->
    ``Runtime`` on the card, answering 4 prompts of 256 tokens (cache
@@ -43,9 +49,13 @@ ignored):
    of its f32 weights, and the 0.05 bar to 4 layers (see ``PATHS``);
    recurrentgemma's decay is about 0 under the reference's init, so it
    is held to the bar again with ``lam`` negated (see ``_negate_lam``).
-   Then float32 at reduced depth (yi-9b and rwkv6 4 layers,
+   Then float32 at reduced depth (gemma2-9b, yi-9b and rwkv6 4 layers,
    recurrentgemma 6): the kernel path's greedy tokens equal the plain
-   path's.
+   path's.  gemma2-9b adds (``phase_gemma2``): one 8192-token prompt
+   (cache 8200, 8 decode steps) through the cascade, its token held to
+   the unfused loop and its logits to the plain path's within rel 0.05;
+   the reference's ring defect printed (4160 tokens) beside an aligned
+   control (4096); and ``kv_quant=True`` through the 4 x 256 cascade.
 5. Serving: the serving runtime (request batching, admission and
    deadlines, fault tolerance, tracing) answering concurrent requests of
    phase 4's bf16 48-layer yi-9b model and params (prompts of 256
@@ -101,8 +111,16 @@ ignored):
    changed fails its canary and leaves blue serving and the card's
    allocated bytes where they were; ``auto_deploy`` plans and serves the
    cascade from a 1-row sample.
-8. The last line: ``{"ok": true, "device": {...}}``; before it a
-   ``kernels`` JSON line and the nvidia-smi line.
+8. Families (see ``phase_families``), after yi-9b's weights are
+   released: full-width llama-3.2-vision-11b in bf16 through
+   ``ServingEngine.generate`` with media (4 prompts x 256 tokens, 1601
+   media tokens, 8 new; cross gates set to 0.5), kernel launches, the
+   media's effect and the kernel path within rel 0.05 of the plain path;
+   the paper's video pipeline on it (6 frames against the 1 s budget,
+   one SLO-controller tick); f32 tokens at 5 layers; peak memory.
+9. The last line: ``{"ok": true, "device": {...}}``; before it a
+   ``kernels`` JSON line (with gemma2-9b's attention rows) and the
+   nvidia-smi line.  Each phase prints its seconds.
 
 Exits non-zero with no result when CUDA is unavailable or the port's
 package is missing.
@@ -126,6 +144,12 @@ H100_FLOPS = {"bfloat16": 989e12,    # dense tensor-core peak
 BF16_REL, F32_REL = 0.05, 1e-4       # the reference's kernel bars
 SPIN_CYCLES = 500_000                # ~0.3 ms at the H100's clocks
 KERNELS = ("decode_attention", "flash_attention", "wkv6", "rglru_scan")
+#: the kernels JSON line's rows: each kernel at its served path's shapes,
+#: and the attention kernels again at gemma2-9b's
+KERNEL_ROWS = ("decode_attention", "flash_attention",
+               "decode_attention[gemma2-9b]", "flash_attention[gemma2-9b]",
+               "wkv6", "rglru_scan")
+T_START = time.perf_counter()
 #: per path: arch, depth of the f32 token check, depth at which the bf16
 #: logits of the kernel path are held to the 0.05 bar (None: full).
 #: Random-weight rwkv6 amplifies last-bit differences layer by layer (the
@@ -133,7 +157,9 @@ KERNELS = ("decode_attention", "flash_attention", "wkv6", "rglru_scan")
 #: ``test_rwkv6_depth_amplifies_a_last_bit_change``), so its bar applies
 #: at 4 layers, and at full depth its gap is held to twice the plain
 #: path's own gap when its f32 weights are scaled by 1 + 2^-20.
-PATHS = (("yi-9b", 4, None), ("rwkv6-1.6b", 4, 4),
+#: gemma2-9b runs first, before yi-9b's weights are kept for phases 5-7:
+#: its 8192-token prompt needs the room (see ``phase_gemma2``).
+PATHS = (("gemma2-9b", 4, None), ("yi-9b", 4, None), ("rwkv6-1.6b", 4, 4),
          ("recurrentgemma-2b", 6, None))
 CONTROL_FACTOR = 2.0
 STEPS, PROMPTS, SEQ, CACHE = 8, 4, 256, 1024
@@ -216,18 +242,19 @@ def time_ms(torch, fn, iters=30, warmup=3, flush=None, spin=False):
     return total / iters
 
 
-def spans(torch, fn, lib, flush):
+def spans(torch, fn, lib, flush, iters=30):
     """``fn``'s and the library call ``lib``'s times under both spans of
     :func:`time_ms` and their host time per call (:func:`host_ms`);
     ``lib`` None (no PyTorch call computes the function) times none."""
-    out = {"ms": time_ms(torch, fn, flush=flush),
-           "device_ms": time_ms(torch, fn, flush=flush, spin=True),
-           "library_ms": None, "host": (host_ms(torch, fn), None)}
+    out = {"ms": time_ms(torch, fn, iters=iters, flush=flush),
+           "device_ms": time_ms(torch, fn, iters=iters, flush=flush,
+                                spin=True),
+           "library_ms": None, "host": (host_ms(torch, fn, iters), None)}
     if lib is not None:
-        out.update(library_ms=time_ms(torch, lib, flush=flush),
-                   library_device_ms=time_ms(torch, lib, flush=flush,
-                                             spin=True),
-                   host=(out["host"][0], host_ms(torch, lib)))
+        out.update(library_ms=time_ms(torch, lib, iters=iters, flush=flush),
+                   library_device_ms=time_ms(torch, lib, iters=iters,
+                                             flush=flush, spin=True),
+                   host=(out["host"][0], host_ms(torch, lib, iters)))
     return out
 
 
@@ -346,15 +373,22 @@ def phase_kernels(torch, dev, flush):
         # dtype and head_dim, so the last one stands for all)
         results["flash_attention"]["instance"] = \
             kops.flash_attention.last_instance
+    results.update(phase_gemma2_kernels(torch, dev, g, flush))
     results.update(phase_recurrent_kernels(torch, dev, g, flush))
     for r in results.values():
         lib = r["library_ms"]
+        lib_text = r.get("library_note") or (
+            "none" if lib is None else f"{lib:.4f} ms")
         print(f"  {r['name']}"
               f"{' (' + r['instance'] + ')' if 'instance' in r else ''}: "
               f"kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library "
-              f"{'none' if lib is None else f'{lib:.4f} ms'}, "
+              f"{r['plain_ms']:.4f} ms, library {lib_text}, "
               f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})", flush=True)
+        if "sdpa_no_softcap_ms" in r:
+            print(f"    SDPA on the same shapes WITHOUT the softcap (not the "
+                  f"same function): {r['sdpa_no_softcap_ms']:.4f} ms, device"
+                  f" work {r['sdpa_no_softcap_device_ms']:.4f} ms",
+                  flush=True)
         lib_dev, lib_host = "", ""
         if lib is not None:
             lib_dev = f", library {r['library_device_ms']:.4f} ms"
@@ -362,6 +396,152 @@ def phase_kernels(torch, dev, flush):
         print(f"    device work only: kernel {r['device_ms']:.4f} ms"
               f"{lib_dev}; host time per call: kernel {r['host'][0]:.4f} "
               f"ms{lib_host}", flush=True)
+    return results
+
+
+#: gemma2-9b's attention at full width: H 16, K 8, head_dim 256, softcap
+#: 50, scale 1/16, window 4096 on the local layers; the prefill row is a
+#: local layer of an 8192-token prompt, the decode row a 4096-slot ring
+#: that has wrapped
+G2_H, G2_K, G2_HD, G2_CAP, G2_WINDOW = 16, 8, 256, 50.0, 4096
+G2_LONG = 8192
+#: calls timed at gemma2's prefill shape (the SIMT instance takes about
+#: 0.1 s a call there)
+G2_FLASH_ITERS = 5
+G2_NOTE = "— (SDPA has no softcap)"
+
+
+def gemma2_ring(torch, dev, B=4):
+    """The decode row's ring: slot s holds position 4096 + s (a ring of
+    4096 slots after 8192 tokens); the query positions make row 0 see
+    every slot, row 1 lose slot 0 to the window, row 2 lose the slots
+    past it to causality and row 3 lose half the ring to the window."""
+    W = G2_WINDOW
+    kpos = (W + torch.arange(W, dtype=torch.int32, device=dev)).expand(
+        B, W).contiguous()
+    qpos = torch.tensor([8191, 8192, 8000, 10000][:B], dtype=torch.int32,
+                        device=dev)
+    return kpos, qpos
+
+
+def phase_gemma2_kernels(torch, dev, g, flush):
+    """Both attention kernels at gemma2-9b's shapes (see ``G2_*``) against
+    their plain versions, in bf16 (the path's dtype): flash on the SIMT
+    instance (asserted: the tensor-core one takes head_dim 64 and 128),
+    decode over the wrapped ring.  SDPA has no softcap, so the rows'
+    ``library_ms`` is null; SDPA's time on the same shapes without the
+    softcap (window and validity as a boolean mask) is recorded beside it
+    under its own name."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    H, K, hd, W = G2_H, G2_K, G2_HD, G2_WINDOW
+    scale = 1.0 / 16
+    kw = dict(window=W, softcap=G2_CAP, scale=scale)
+    dt = torch.bfloat16
+    results = {}
+
+    # -- decode over the wrapped ring --------------------------------------
+    B = 4
+    kpos, qpos = gemma2_ring(torch, dev, B)
+    q = torch.randn((B, H, hd), generator=g, device=dev).to(dt)
+    kc = torch.randn((B, W, K, hd), generator=g, device=dev).to(
+        dt).transpose(1, 2)
+    vc = torch.randn((B, W, K, hd), generator=g, device=dev).to(
+        dt).transpose(1, 2)
+    got = kops.decode_attention(q, kc, vc, kpos, qpos, **kw)
+    want = decode_attention_plain(q, kc, vc, kpos, qpos, **kw)
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    abs_err = float((got.float() - want.float()).abs().max())
+    check(bool(torch.isfinite(got).all()) and err < BF16_REL,
+          f"decode_attention at gemma2-9b's shape (hd {hd}, window {W}, "
+          f"softcap {G2_CAP}, wrapped {W}-slot ring): rel err {err} < "
+          f"{BF16_REL} (max abs {abs_err})")
+    splits = kops.decode_attention.last_splits
+    valid = ((kpos >= 0) & (kpos <= qpos[:, None])
+             & (qpos[:, None] - kpos < W))
+    n_valid = int(valid.sum())
+    el = q.element_size()
+    nbytes = (q.numel() * el * 2 + 2 * n_valid * K * hd * el
+              + n_valid * 4 + B * 4)
+    mask = valid[:, None, None, :]
+    results["decode_attention[gemma2-9b]"] = {
+        "name": "decode_attention[gemma2-9b]", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:88",
+        "shape": f"gemma2-9b: B {B}, H {H}, K {K}, hd {hd}, {W}-slot ring "
+                 f"wrapped, {n_valid} valid slots, window {W}, softcap "
+                 f"{G2_CAP}",
+        "max_abs_err": abs_err,
+        "plain_ms": time_ms(torch, lambda: decode_attention_plain(
+            q, kc, vc, kpos, qpos, **kw), flush=flush),
+        **_bound(nbytes, 2 * 2 * n_valid * H * hd, "bfloat16"),
+        **spans(torch, lambda: kops.decode_attention(
+            q, kc, vc, kpos, qpos, **kw), None, flush),
+        "library_note": G2_NOTE,
+        "sdpa_no_softcap_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kc, vc, attn_mask=mask, scale=scale,
+            enable_gqa=True), flush=flush),
+        "sdpa_no_softcap_device_ms": time_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kc, vc, attn_mask=mask, scale=scale,
+                enable_gqa=True), flush=flush, spin=True),
+        "instance": f"split-S x{splits}",
+    }
+    del q, kc, vc
+
+    # -- flash, a local layer of the 8192-token prompt ---------------------
+    B, S = 1, G2_LONG
+    q, k, v = (torch.randn((B, S, n, hd), generator=g, device=dev).to(
+        dt).transpose(1, 2) for n in (H, K, K))          # model's views
+    fkw = dict(causal=True, **kw)
+    got = kops.flash_attention(q, k, v, **fkw)
+    want = flash_attention_plain(q, k, v, **fkw)
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    abs_err = float((got.float() - want.float()).abs().max())
+    del want
+    check(bool(torch.isfinite(got).all()) and err < BF16_REL,
+          f"flash_attention at gemma2-9b's prefill shape ([{B}, {H}, {S}, "
+          f"{hd}], K {K}, window {W}, softcap {G2_CAP}): rel err {err} < "
+          f"{BF16_REL} (max abs {abs_err})")
+    instance = kops.flash_attention.last_instance
+    check(instance == "simt", f"flash_attention at head_dim {hd} ran the "
+          f"{instance} instance")
+    el = q.element_size()
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * el
+    pairs = B * H * sum(min(i + 1, W) for i in range(S))  # causal, windowed
+    qp = torch.arange(S, device=dev)[:, None]
+    kp = torch.arange(S, device=dev)[None, :]
+    mask = (kp <= qp) & (qp - kp < W)
+    it = G2_FLASH_ITERS
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              scale=scale, enable_gqa=True)
+
+    results["flash_attention[gemma2-9b]"] = {
+        "name": "flash_attention[gemma2-9b]", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:95",
+        "shape": f"gemma2-9b: [{B}, {H}, {S}, {hd}], K {K}, causal, window "
+                 f"{W}, softcap {G2_CAP}, scale 1/16",
+        "max_abs_err": abs_err,
+        "plain_ms": time_ms(torch, lambda: flash_attention_plain(
+            q, k, v, **fkw), iters=it, warmup=1, flush=flush),
+        **_bound(nbytes, 2 * 2 * pairs * hd, "bfloat16"),
+        **spans(torch, lambda: kops.flash_attention(q, k, v, **fkw), None,
+                flush, iters=it),
+        "library_note": G2_NOTE,
+        "sdpa_no_softcap_ms": time_ms(torch, sdpa, iters=it, flush=flush),
+        "sdpa_no_softcap_device_ms": time_ms(torch, sdpa, iters=it,
+                                             flush=flush, spin=True),
+        "instance": kops.flash_attention.last_instance,
+    }
     return results
 
 
@@ -461,10 +641,11 @@ def phase_recurrent_kernels(torch, dev, g, flush):
     return results
 
 
-def serve(torch, dev, cfg, calls=3):
+def serve(torch, dev, cfg, calls=3, params=None):
     """Compile the cascade for ``cfg`` on a card Runtime and answer the
     same ``PROMPTS`` x ``SEQ`` batch ``calls`` times, with every kernel's
-    launch counter set to 0 just before.  Returns (model, params, tokens,
+    launch counter set to 0 just before; ``params`` (drawn from the seed
+    when None) are the weights.  Returns (model, params, tokens,
     greedy tokens, per-call latencies, per-call re-traces, the chain's
     (batched, per-row) dispatches, launches).  Nothing returned holds the
     chain, whose steps close over the params."""
@@ -476,7 +657,8 @@ def serve(torch, dev, cfg, calls=3):
 
     prompts, seq, cache_len, steps = PROMPTS, SEQ, CACHE, STEPS
     model = build_model(cfg, device=dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    if params is None:
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED))
     toks = torch.randint(0, cfg.vocab_size, (prompts, seq),
                          dtype=torch.int32,
                          generator=torch.Generator().manual_seed(SEED + 1))
@@ -600,6 +782,10 @@ def phase_path(torch, dev, arch, f32_layers, logits_layers, keep=False):
         e_cut = max(kernel_vs_plain(torch, dev, cut, params, toks))
         check(e_cut < BF16_REL, f"{cut.num_layers}-layer logits rel err "
               f"{e_cut} < 0.05 (prefill and first decode)")
+    if cfg.local_global_pattern:
+        launches_long = phase_gemma2(torch, dev, cfg, model, params)
+        print(f"  gemma2 extras' launches (long prompt, ring defect, "
+              f"kv_quant): {launches_long}", flush=True)
     if cfg.family == "hybrid":
         # the reference's init gives a = sigmoid(-lam)^4 < 3e-8, so a*h
         # is below half an ulp of x and h_t = x_t on both paths to the
@@ -630,6 +816,175 @@ def phase_path(torch, dev, arch, f32_layers, logits_layers, keep=False):
     del model, params, plain32
     _release(torch)
     return launches, served
+
+
+# -- phase 4, gemma2-9b: the long prompt, the ring defect, the int8 cache ----
+
+#: gemma2's long prompt: the window binds in the prefill, the local ring
+#: is aligned (8192 % 4096 = 0) and wraps in decode
+G2_LONG_CACHE = 8200
+#: the reference's ring defect: prompts of 4160 tokens (4160 % 4096 = 64:
+#: the first decode step overwrites position 128, still in the window)
+#: and of 4096 (aligned: the control)
+G2_RING_SEQS = (4160, 4096)
+#: depth of the ring check at f32 (two blocks), where the bf16 rounding
+#: of the full depth does not hide the defect
+G2_RING_F32_LAYERS = 4
+
+
+def _greedy_loop(torch, model, params, toks, cache_len, steps):
+    """The unfused loop (``decode_cascade.reference_decode``) keeping the
+    prefill's last-position logits and the first decode step's logits:
+    returns (final greedy tokens, prefill logits [B, V], first decode
+    logits [B, V]).  The prefill's all-position logits are dropped at
+    once (8.4 GB at 8192 tokens of gemma2's vocabulary)."""
+    logits, cache = model.prefill(params, {"tokens": toks}, cache_len)
+    first = logits[:, -1].clone()
+    del logits
+    tok = torch.argmax(first, dim=-1).to(torch.int32)
+    pos = torch.full(toks.shape[:1], toks.shape[1], dtype=torch.int32,
+                     device=toks.device)
+    step = None
+    for _ in range(steps):
+        lg, cache = model.decode_step(params, tok[:, None], pos, cache)
+        tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)
+        step = lg[:, -1] if step is None else step
+        pos = pos + 1
+    return [int(x) for x in tok], first, step
+
+
+def _ring_gaps(torch, dev, cfg, params, toks):
+    """Print, for each prompt length of ``G2_RING_SEQS``, how far the
+    first decode step's logits after a prefill stand off the full
+    forward's at the same position, on the kernel and the plain path."""
+    from repro_torch.models import transformer
+
+    for S2 in G2_RING_SEQS:
+        p2 = toks[:, :S2]
+        nxt = None
+        for side, kernels in (("kernel", True), ("plain", False)):
+            c = dataclasses.replace(cfg, use_kernels=kernels)
+            # the plain path's chunked attention needs chunks that divide
+            # S: one chunk of the whole prompt
+            logits, cache = transformer.forward(
+                params, p2, c, build_cache=True, cache_len=S2 + 8,
+                chunk=S2)
+            if nxt is None:
+                nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            del logits
+            pos = torch.full((1,), S2, dtype=torch.int32, device=dev)
+            step, _ = transformer.decode_step(params, nxt[:, None], pos,
+                                              cache, c)
+            del cache
+            full = transformer.forward(
+                params, torch.cat([p2, nxt[:, None]], dim=1), c,
+                chunk=S2 + 1)[:, S2]
+            gap = float((step[:, 0] - full).abs().max())
+            kind = "defect" if S2 % cfg.sliding_window else "control"
+            print(f"  ring {kind} ({cfg.dtype}, {cfg.num_layers} layers, "
+                  f"{S2} tokens, window "
+                  f"{cfg.sliding_window}), {side} path: first decode logits"
+                  f" vs the full forward's at position {S2}: max abs {gap},"
+                  f" rel {rel_err(step[:, 0], full)}", flush=True)
+            del step, full
+
+
+def phase_gemma2(torch, dev, cfg, model, params):
+    """gemma2-9b's checks beyond the cascade, on phase 4's bf16 weights.
+
+    1. One 8192-token prompt (cache ``G2_LONG_CACHE``, ``STEPS`` decode
+       steps) through the cascade: its token equals the unfused loop's on
+       the kernel path, and the kernel path's logits (prefill and first
+       decode) are the plain path's within rel 0.05.
+    2. The reference's ring defect: after a prompt of S tokens, the first
+       decode step's logits against the full forward's at position S, on
+       the kernel and the plain path, for S = 4160 (the defect) and 4096
+       (aligned), in bf16 at full depth and at f32 on two blocks.
+       Printed, not asserted: it is the reference's behaviour.
+    3. ``kv_quant=True`` through the 4 x 256 cascade: tokens equal its
+       unfused loop, logits within 0.05 of its plain path.
+
+    Returns the launches of part 1's cascade run."""
+    from repro_torch.core.table import Table
+    from repro_torch.examples import decode_cascade as dc
+    from repro_torch.models import build_model
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    plain = build_model(dataclasses.replace(cfg, use_kernels=False),
+                        device=dev)
+    S, C = G2_LONG, G2_LONG_CACHE
+    toks = torch.randint(0, cfg.vocab_size, (1, S), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(SEED + 2))
+    rt = dc.Runtime(n_cpu=1, n_gpu=1, net=dc.NetModel(scale=0.0),
+                    hang_timeout_s=PATH_HANG_TIMEOUT_S, device=dev)
+    try:
+        pre, dec = dc.build_ops(model, params, seq_len=S, cache_len=C,
+                                name=cfg.name, measure=False)
+        dep = dc.build(rt, pre, dec, steps=STEPS, name="smoke-gemma2-long")
+        _zero_launches()
+        t0 = time.perf_counter()
+        out = dep.execute(Table([("tokens", torch.Tensor)],
+                                [(toks[0],)])).result(600)
+        lat = time.perf_counter() - t0
+        launches = _launches()
+        check(rt.pool.fault_counts["wedge"] == 0,
+              f"no wedge on the long prompt ({rt.pool.fault_counts})")
+    finally:
+        rt.stop()
+    got = int(out.rows[0].values[0])
+    want = expected_launches(cfg, 1, STEPS)
+    check(launches == want, f"{S}-token prompt: launches {launches} == "
+          f"{want}")
+    toks = toks.to(dev)
+    ref, k_pre, k_dec = _greedy_loop(torch, model, params, toks, C, STEPS)
+    check([got] == ref, f"{S}-token prompt, cache {C}, {STEPS} decode "
+          f"steps: cascade token {got} == unfused loop {ref}")
+    _, p_pre, p_dec = _greedy_loop(torch, plain, params, toks, C, 1)
+    e_pre, e_dec = rel_err(k_pre, p_pre), rel_err(k_dec, p_dec)
+    check(max(e_pre, e_dec) < BF16_REL, f"{S}-token prompt: logits rel err "
+          f"kernel vs plain path {e_pre} (prefill), {e_dec} (first decode) "
+          f"< {BF16_REL}")
+    print(f"  {S}-token prompt latency through the cascade: {lat * 1e3} ms;"
+          f" peak device memory {torch.cuda.max_memory_allocated(dev)} "
+          f"bytes", flush=True)
+
+    # the ring defect, shown on the card: at full depth in bf16, and at
+    # f32 on two blocks, where rounding no longer hides it
+    _ring_gaps(torch, dev, cfg, params, toks)
+    del plain
+    _release(torch)
+    c32 = dataclasses.replace(cfg, num_layers=G2_RING_F32_LAYERS,
+                              dtype="float32")
+    p32 = build_model(c32, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    _ring_gaps(torch, dev, c32, p32, toks)
+    del p32
+    _release(torch)
+
+    # the int8 KV cache through the same cascade
+    cq = dataclasses.replace(cfg, kv_quant=True)
+    model_q, _, toks_q, got_q, lats_q, retraces_q, disp_q, launches_q = \
+        serve(torch, dev, cq, params=params)
+    runs = sum(disp_q)
+    want = expected_launches(cq, runs, STEPS)
+    check(runs > 0 and launches_q == want, f"kv_quant: launches "
+          f"{launches_q} == {want} for {runs} prefill dispatches")
+    check(retraces_q[1:] == [0, 0], f"kv_quant re-traces per call "
+          f"{retraces_q}")
+    ref_q = dc.reference_decode(model_q, params, toks_q, steps=STEPS,
+                                cache_len=CACHE)
+    check(got_q == ref_q, f"kv_quant: fused cascade tokens {got_q} == "
+          f"unfused loop {ref_q}")
+    e_q = kernel_vs_plain(torch, dev, cq, params, toks_q)
+    check(max(e_q) < BF16_REL, f"kv_quant: logits rel err kernel vs plain "
+          f"path {e_q} (prefill, first decode) < {BF16_REL}")
+    print(f"  kv_quant latency: first {lats_q[0] * 1e3} ms, steady "
+          f"{min(lats_q) * 1e3} ms ({PROMPTS} prompts x {SEQ} tokens, "
+          f"{STEPS} decode steps); peak device memory since the long "
+          f"prompt {torch.cuda.max_memory_allocated(dev)} bytes", flush=True)
+    del model_q
+    _release(torch)
+    return launches
 
 
 # -- phase 5: the serving runtime on full-width yi-9b ------------------------
@@ -2030,6 +2385,166 @@ def _plan_planner(torch, dev, rt, model, params, toks, alone):
             "serve_s": serve_s}
 
 
+# -- phase 8: llama-3.2-vision-11b through ServingEngine, the video pipeline --
+
+VLM = "llama-3.2-vision-11b"
+#: the cross gates' value for the media check: the reference initialises
+#: them to 0, and tanh(0) = 0 would hide the media
+VLM_GATE = 0.5
+#: depth of the vlm's f32 token check: one block, four plain layers and
+#: one cross layer
+VLM_F32_LAYERS = 5
+VIDEO_FRAMES = 6
+
+
+def _open_gates(params, value):
+    for blk in params["blocks"].values():
+        if "cross" in blk:
+            blk["cross"]["gate"].fill_(value)
+
+
+def _vlm_batch(torch, dev, cfg, dtype):
+    """4 prompts of 256 tokens and 1601 media tokens of seeded randn x 0.1
+    (the stub vision frontend's patch embeddings)."""
+    toks = torch.randint(0, cfg.vocab_size, (PROMPTS, SEQ), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(SEED + 1))
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    media = 0.1 * torch.randn((PROMPTS, cfg.num_media_tokens, cfg.d_model),
+                              generator=g, device=dev)
+    return {"tokens": toks.to(dev), "media": media.to(dtype)}
+
+
+def phase_families(torch, dev, smi):
+    """Phase 8: full-width llama-3.2-vision-11b (bf16, both kernels, its
+    cross gates set to ``VLM_GATE``) through ``ServingEngine.generate``
+    with media (4 prompts x 256 tokens, 1601 media tokens, ``STEPS`` new
+    tokens): the kernels launched as the engine needs them, the media
+    move the logits, the kernel path's logits (prefill and first decode)
+    within rel 0.05 of the plain path's; the paper's video pipeline on
+    the same weights (``VIDEO_FRAMES`` frames, per-frame latency beside
+    the 1 s budget, labels per frame, one SLO-controller tick); then at
+    f32 and ``VLM_F32_LAYERS`` layers the kernel path's greedy tokens
+    equal the plain path's.  Prints each part's peak allocation."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import video_pipeline as vp
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServingEngine
+
+    cfg = dataclasses.replace(get_config(VLM), use_kernels=True)
+    L = cfg.num_layers
+    print(f"-- {cfg.name}: {L} layers, d_model {cfg.d_model}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, cross every "
+          f"{cfg.cross_attn_period}, {cfg.num_media_tokens} media tokens, "
+          f"{cfg.dtype}", flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    _open_gates(params, VLM_GATE)
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    batch = _vlm_batch(torch, dev, cfg, torch.bfloat16)
+    engine = ServingEngine(model, cache_len=CACHE)
+    engine.generate(params, batch, STEPS)                  # warm
+    _zero_launches()
+    t0 = time.perf_counter()
+    got = engine.generate(params, batch, STEPS)
+    gen_s = time.perf_counter() - t0
+    launches = _launches()
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flash_attention=L, decode_attention=L * STEPS)
+    check(launches == want, f"generate with media: launches {launches} == "
+          f"{want} (one prefill, {STEPS} decode steps)")
+    check(got.shape == (PROMPTS, STEPS) and 0 <= got.min()
+          and got.max() < cfg.vocab_size,
+          f"generate: {got.shape} tokens in range: {got.tolist()}")
+
+    plain = build_model(dataclasses.replace(cfg, use_kernels=False),
+                        device=dev)
+    side, nxt = {}, None
+    for name, m in (("kernel", model), ("plain", plain)):
+        logits, cache = m.prefill(params, batch, CACHE)
+        if nxt is None:          # both paths decode the kernel path's token
+            nxt = logits[:, -1].argmax(-1).to(torch.int32)
+        pos = torch.full((PROMPTS,), SEQ, dtype=torch.int32, device=dev)
+        step, _ = m.decode_step(params, nxt[:, None], pos, cache)
+        side[name] = (logits[:, -1].clone(), step[:, -1].clone())
+        del logits, cache, step
+    # the media's effect, read on one path: the same prefill again, with
+    # the media and without
+    again, _ = model.prefill(params, batch, CACHE)
+    text, _ = model.prefill(params, {"tokens": batch["tokens"]}, CACHE)
+    e_pre = rel_err(side["kernel"][0], side["plain"][0])
+    e_dec = rel_err(side["kernel"][1], side["plain"][1])
+    e_repeat = rel_err(again[:, -1], side["kernel"][0])
+    e_media = rel_err(text[:, -1], side["kernel"][0])
+    check(max(e_pre, e_dec) < BF16_REL, f"{L}-layer logits with media, "
+          f"kernel vs plain path: rel err {e_pre} (prefill), {e_dec} "
+          f"(first decode) < {BF16_REL}")
+    check(e_media > max(100 * e_repeat, 1e-3),
+          f"the media move the logits on the kernel path: rel {e_media} "
+          f"against text alone, where the same prefill repeated moves them "
+          f"by {e_repeat}")
+    del plain, text, again
+    gen_peak = torch.cuda.max_memory_allocated(dev)
+    print(f"  {cfg.name}: {nbytes} bytes of weights; generate ({PROMPTS} x "
+          f"{SEQ} tokens with media, {STEPS} new) {gen_s * 1e3} ms; peak "
+          f"device memory {gen_peak} bytes, {gen_peak - held} above the "
+          f"{held} held before", flush=True)
+
+    # the paper's video pipeline on the full-width detector
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launches()
+    r = vp.run(frames=VIDEO_FRAMES, arch=VLM, tiny=False, device=dev,
+               params=params, hang_timeout_s=PATH_HANG_TIMEOUT_S)
+    v_launch = _launches()
+    video_peak = torch.cuda.max_memory_allocated(dev)
+    for i, (ms, c) in enumerate(zip(r["frame_ms"], r["counts"])):
+        print(f"  video frame {i}: {ms} ms (budget {vp.BUDGET_MS} ms) "
+              f"{c}", flush=True)
+    print(f"  video: median {r['median_ms']} ms, p99 {r['p99_ms']} ms "
+          f"against the paper's {vp.BUDGET_MS} ms budget; "
+          f"labels_per_frame {r['labels_per_frame']}; controller "
+          f"{r['controller']} {r['controller_detail']}; launches "
+          f"{v_launch}; peak device memory {video_peak} bytes", flush=True)
+    check(r["frames"] == VIDEO_FRAMES and r["labels_per_frame"] > 0
+          and all(sum(d["count"] for d in c) == 2 for c in r["counts"]),
+          f"video: {VIDEO_FRAMES} frames, each one person and one vehicle "
+          f"label")
+    check(v_launch["flash_attention"] > 0
+          and v_launch["flash_attention"] % L == 0
+          and v_launch["decode_attention"] == 0,
+          f"video: the detector ran flash attention per layer "
+          f"({v_launch})")
+    del model, params, engine
+    _release(torch)
+
+    # float32 at one block: greedy tokens equal
+    cfg32 = dataclasses.replace(cfg, num_layers=VLM_F32_LAYERS,
+                                dtype="float32")
+    model32 = build_model(cfg32, device=dev)
+    params32 = model32.init(torch.Generator(device=dev).manual_seed(SEED))
+    _open_gates(params32, VLM_GATE)
+    batch32 = _vlm_batch(torch, dev, cfg32, torch.float32)
+    got32 = ServingEngine(model32, cache_len=CACHE).generate(
+        params32, batch32, STEPS)
+    plain32 = build_model(dataclasses.replace(cfg32, use_kernels=False),
+                          device=dev)
+    want32 = ServingEngine(plain32, cache_len=CACHE).generate(
+        params32, batch32, STEPS)
+    check((got32 == want32).all(), f"f32 {VLM_F32_LAYERS}-layer kernel-path "
+          f"tokens {got32.tolist()} == plain-path tokens {want32.tolist()}")
+    del model32, params32, plain32
+    print("families: " + json.dumps({
+        "model": cfg.name, "generate_ms": gen_s * 1e3,
+        "logits_rel_err": [e_pre, e_dec], "media_rel": e_media,
+        "repeat_rel": e_repeat,
+        "peak_bytes": {"generate": gen_peak, "video": video_peak},
+        "video": {k: r[k] for k in ("frames", "median_ms", "p99_ms",
+                                    "frame_ms", "labels_per_frame",
+                                    "controller")},
+        "smi": smi}), flush=True)
+
+
 def kernel_vs_plain(torch, dev, cfg, params, toks):
     """Logits rel err of the kernel path against the plain path on the
     same params and prompts: (prefill, first decode step).  Checks that
@@ -2098,6 +2613,17 @@ def _leaves(tree):
         yield tree
 
 
+def _phase(name, t_prev=None):
+    """Close the running phase (its seconds) and open ``name``; returns
+    the new phase's start."""
+    now = time.perf_counter()
+    if t_prev is not None:
+        print(f"  (phase seconds: {now - t_prev:.1f})", flush=True)
+    if name is not None:
+        print(f"== {name}", flush=True)
+    return now
+
+
 def main() -> int:
     import torch
 
@@ -2118,49 +2644,59 @@ def main() -> int:
     print(f"  {kind} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}); nvidia-smi: {smi}", flush=True)
 
-    print("== build", flush=True)
-    t0 = time.perf_counter()
+    t0 = _phase("build")
     secs = build.build(verbose=True)   # ptxas: registers, smem, spills
     print(f"  built {secs} in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print("== kernels", flush=True)
+    t0 = _phase("kernels")
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     kernels = phase_kernels(torch, dev, flush=scratch.zero_)
     del scratch
 
-    print("== paths", flush=True)
+    t0 = _phase("paths", t0)
     served = {}
     for arch, f32_layers, logits_layers in PATHS:
         _release(torch)          # nothing of the last path stays allocated
-        # each kernel's launches come from the run of the path it is on
+        # each kernel's launches come from the run of the path it is on:
+        # yi-9b's for the base rows, gemma2-9b's for its own
         launches, kept = phase_path(torch, dev, arch, f32_layers,
                                     logits_layers, keep=arch == "yi-9b")
         if kept is not None:
             served[arch] = kept  # phase 5 serves yi-9b's weights
+        suffix = f"[{arch}]" if f"flash_attention[{arch}]" in kernels else ""
         for name, n in launches.items():
             if n:
-                kernels[name]["launches"] = n
+                kernels[name + suffix]["launches"] = n
 
-    print("== serving", flush=True)
+    t0 = _phase("serving", t0)
     _release(torch)
     yi = served.pop("yi-9b")
     one_worker = phase_serving(torch, dev, *yi, smi=smi)
     _release(torch)
 
-    print("== compile", flush=True)
+    t0 = _phase("compile", t0)
     phase_compile(torch, dev, *yi, smi=smi)
     _release(torch)
 
-    print("== plan", flush=True)
+    t0 = _phase("plan", t0)
     phase_plan(torch, dev, *yi, served=one_worker, smi=smi)
     del yi
     _release(torch)
+
+    t0 = _phase("families", t0)
+    phase_families(torch, dev, smi)
+    _release(torch)
+    _phase(None, t0)
+    print(f"  chip_smoke total: {time.perf_counter() - T_START:.1f} s",
+          flush=True)
     keys = ["name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"]
-    extra = ["device_ms", "library_device_ms", "instance"]
+    extra = ["device_ms", "library_device_ms", "instance", "shape",
+             "library_note", "sdpa_no_softcap_ms",
+             "sdpa_no_softcap_device_ms"]
     line = {"kernels": [{k: kernels[n][k] for k in keys + extra
-                         if k in kernels[n]} for n in KERNELS]}
+                         if k in kernels[n]} for n in KERNEL_ROWS]}
     print(smi, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

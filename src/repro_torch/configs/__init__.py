@@ -1,18 +1,23 @@
 """Config registry for the port: one module per ported architecture,
-copied from the reference package (the dense archs, rwkv6 and
-recurrentgemma).  The other families and the input-shape table come with
-their models."""
+copied from the reference package (the dense archs with gemma2, the
+llama-3.2-vision vlm, rwkv6 and recurrentgemma), plus the reference's
+input-shape table.  The MoE archs and whisper come with their models."""
 from __future__ import annotations
 
 import importlib
 from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import (  # noqa: F401
+    SHAPES, LONG_CONTEXT_OK, InputShape,
+    TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
 
 _MODULES = {
     "yi-9b": "repro_torch.configs.yi_9b",
     "glm4-9b": "repro_torch.configs.glm4_9b",
     "granite-34b": "repro_torch.configs.granite_34b",
+    "gemma2-9b": "repro_torch.configs.gemma2_9b",
+    "llama-3.2-vision-11b": "repro_torch.configs.llama32_vision_11b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1b6",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }

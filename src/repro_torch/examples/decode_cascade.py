@@ -11,10 +11,14 @@ batched call of the model (one kernel launch per attention site and
 layer with ``use_kernels``).
 
   PYTHONPATH=src python -m repro_torch.examples.decode_cascade \
-      [--arch yi-9b | rwkv6-1.6b | recurrentgemma-2b | ...] [--requests N]
+      [--arch yi-9b | gemma2-9b | rwkv6-1.6b | recurrentgemma-2b | ...] \
+      [--requests N]
 
-The model is the arch's tiny config at f32; rwkv6 and recurrentgemma run
-their recurrences through the ``wkv6`` and ``rglru_scan`` kernels.  With
+The model is the arch's tiny config at f32; gemma2 runs both attention
+kernels with its window and softcap, rwkv6 and recurrentgemma run their
+recurrences through the ``wkv6`` and ``rglru_scan`` kernels.  A vlm is
+not served here: its stages take no media (``video_pipeline`` and
+``ServingEngine`` serve it).  With
 ``--requests N`` the stages carry the ``batching`` hint and N one-prompt
 requests are submitted at once: the runtime's batcher merges them into
 batched dispatches, and the run prints each request's tokens (held to
@@ -45,6 +49,9 @@ from repro_torch.models.registry import model_stage_op
 from repro_torch.runtime import NetModel, Runtime
 
 ARCH = "yi-9b"
+#: the archs whose prefill -> decode stages serve text alone
+CASCADE_ARCHS = tuple(a for a in ARCH_IDS
+                      if get_tiny_config(a).family != "vlm")
 SEQ = 16
 CACHE = 32
 STEPS = 4
@@ -221,7 +228,7 @@ def run_requests(requests: int, *, arch: str = ARCH, steps: int = STEPS):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default=ARCH, choices=ARCH_IDS)
+    ap.add_argument("--arch", default=ARCH, choices=CASCADE_ARCHS)
     ap.add_argument("--requests", type=int, default=0,
                     help="submit N one-prompt requests at once through "
                          "the batching cascade")

@@ -5,9 +5,10 @@ Plain functions over tensors, numerically the reference's: rmsnorm in the
 ``(1 + scale)`` form with zero-initialised scale, layernorm, RWKV-6's
 per-head group norm (population variance, eps 64e-5), half-split (not
 interleaved) RoPE, KV-chunked online-softmax attention with masked logits
-at -1e30, and single-token decode attention over a ring cache.  The CUDA
-kernels in :mod:`repro_torch.kernels` replace the two attention functions
-when ``use_kernels`` is set.
+at -1e30, single-token decode attention over a ring cache, and the int8
+KV-cache quantization of ``kv_quant``.  The CUDA kernels in
+:mod:`repro_torch.kernels` replace the two attention functions when
+``use_kernels`` is set.
 """
 from __future__ import annotations
 
@@ -42,6 +43,17 @@ def apply_norm(x, params, kind: str):
     if kind == "rmsnorm":
         return rmsnorm(x, params["scale"])
     return layernorm(x, params["scale"], params["bias"])
+
+
+def init_norm(d: int, kind: str, dtype, device, lead=()):
+    """A norm's parameters (the reference's ``init_norm``): rmsnorm a zero
+    ``scale`` (it scales by ``1 + scale``), layernorm unit ``scale`` and
+    zero ``bias``; ``lead`` prepends stacked axes."""
+    shape = tuple(lead) + (d,)
+    if kind == "rmsnorm":
+        return {"scale": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"scale": torch.ones(shape, dtype=dtype, device=device),
+            "bias": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def groupnorm_heads(x, scale, bias, num_heads: int, eps: float = 64e-5):
@@ -190,6 +202,28 @@ def decode_attention(q, k_cache, v_cache, *, q_position, k_positions,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
     return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# int8 KV-cache quantization (``kv_quant``)
+# ---------------------------------------------------------------------------
+def kv_quantize(x):
+    """x: [..., hd] -> (int8 values, f32 scale [...]), one scale per
+    (slot, head): ``max(|x|) / 127`` (at least 1e-8 / 127), values
+    rounded half to even and clipped to +-127, all in f32."""
+    xf = x.float()
+    amax = torch.clamp_min(xf.abs().amax(dim=-1), 1e-8)
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which can miss max / 127 by a last
+    # bit (and then flip a rounded value); a tensor divides exactly
+    scale = amax / amax.new_tensor(127.0)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def kv_dequantize(q, scale, dtype=torch.bfloat16):
+    """int8 values and their f32 scales back to ``dtype`` (f32 math)."""
+    return (q.float() * scale[..., None]).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,28 @@
 """Model facade and plan-operator glue (port of the reference package's
-``models/registry.py``: the dense, ssm (rwkv6) and hybrid
-(recurrentgemma) families).
+``models/registry.py``: the dense (with gemma2), vlm (llama-3.2-vision),
+ssm (rwkv6) and hybrid (recurrentgemma) families).
 
-``build_model(cfg, device=None)`` returns a :class:`Model` with
-``init(generator)``, ``logits``, ``prefill``, ``init_cache`` and
-``decode_step``.  ``model_stage_op(model, params, stage)`` wraps one
-serving stage as a ``ModelOp`` for the dataflow.
+``build_model(cfg, device=None, long_context=False)`` returns a
+:class:`Model` with ``init(generator)``, ``logits``, ``prefill``,
+``init_cache``, ``decode_step`` and ``input_specs(shape)``.
+``model_stage_op(model, params, stage)`` wraps one serving stage as a
+``ModelOp`` for the dataflow.  ``batch`` is a dict: {"tokens",
+"media"? (vlm stub patch embeddings [B, M, D])}.
 
 Row-wise column contracts (per table row), as in the reference:
 
+* ``logits``  — tokens [S] i32            -> next-token logits [V]
 * ``prefill`` — tokens [S] i32            -> (tok [] i32, pos [] i32,
                                              *cache leaves)
 * ``decode``  — (tok, pos, *cache leaves) -> same shape: one greedy
                                              decode step advances them
+
+The stages take no media: a vlm serves media through
+``ServingEngine.generate`` (``serving/engine.py``), and its ``logits``
+stage runs the text path alone.  Its ``prefill`` stage returns the
+reference's columns: the prefill without media builds no ``ck``/``cv``
+leaves, so the op yields two cache columns fewer than its names (ROADMAP
+§3: reference behaviour the port copies).
 
 The cache rides the table as per-row columns, one per cache leaf in the
 order of ``jax.tree_util.tree_flatten`` (sorted keys at every level of
@@ -35,53 +45,100 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import InputShape
 from repro_torch.device import DeviceLike, resolve_device, synchronize
+from repro_torch.interop import torch_dtype
 from repro_torch.models import rglru, rwkv6, transformer
 
-_FAMILY_MODULES = {"dense": transformer, "ssm": rwkv6, "hybrid": rglru}
+_FAMILY_MODULES = {"dense": transformer, "vlm": transformer, "ssm": rwkv6,
+                   "hybrid": rglru}
+#: families whose module takes ``long_context`` (the reference's own set,
+#: without moe)
+_LONG_CONTEXT = ("dense", "vlm")
 
 
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
     device: torch.device
+    long_context: bool = False
 
     @property
     def mod(self):
         return _FAMILY_MODULES[self.cfg.family]
 
+    def _kw(self) -> Dict[str, Any]:
+        return ({"long_context": self.long_context}
+                if self.cfg.family in _LONG_CONTEXT else {})
+
+    def _fwd_kw(self, batch) -> Dict[str, Any]:
+        kw = self._kw()
+        if self.cfg.family == "vlm":
+            kw["media"] = batch.get("media")
+        return kw
+
     # -- params ------------------------------------------------------------
     def init(self, generator: Optional[torch.Generator] = None):
-        return self.mod.init_params(self.cfg, generator, self.device)
+        return self.mod.init_params(self.cfg, generator, self.device,
+                                    **self._kw())
 
     # -- forward -------------------------------------------------------------
     def logits(self, params, batch):
-        return self.mod.forward(params, batch["tokens"], self.cfg)
+        return self.mod.forward(params, batch["tokens"], self.cfg,
+                                **self._fwd_kw(batch))
 
     # -- serving -------------------------------------------------------------
     def prefill(self, params, batch, cache_len: int):
         logits, cache = self.mod.forward(params, batch["tokens"], self.cfg,
                                          build_cache=True,
-                                         cache_len=cache_len)
+                                         cache_len=cache_len,
+                                         **self._fwd_kw(batch))
         return logits[:, -1:], cache
 
     def init_cache(self, batch: int, cache_len: int,
                    device: DeviceLike = None):
         return self.mod.init_cache(self.cfg, batch, cache_len,
-                                   device=device or self.device)
+                                   device=device or self.device,
+                                   **self._kw())
 
     def decode_step(self, params, tokens, pos, cache):
-        return self.mod.decode_step(params, tokens, pos, cache, self.cfg)
+        return self.mod.decode_step(params, tokens, pos, cache, self.cfg,
+                                    **self._kw())
+
+    # -- dry-run specs ---------------------------------------------------------
+    def input_specs(self, shape: InputShape) -> Dict[str, Any]:
+        """Meta tensors (shape and dtype, no storage) for every model input
+        of the given shape, as the reference's ``ShapeDtypeStruct``s."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+
+        def meta(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            specs = {"tokens": meta((B, S), i32)}
+            if shape.kind == "train":
+                specs["labels"] = meta((B, S), i32)
+            if cfg.family == "vlm":
+                specs["media"] = meta((B, cfg.num_media_tokens, cfg.d_model),
+                                      torch_dtype(cfg.dtype))
+            return specs
+        # decode: one token + cache of length S
+        return {"tokens": meta((B, 1), i32), "pos": meta((B,), i32),
+                "cache": self.init_cache(B, S, device="meta")}
 
 
-def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:
+def build_model(cfg: ModelConfig, device: DeviceLike = None, *,
+                long_context: bool = False) -> Model:
     """The model on ``device`` (the CUDA device unless the caller names
     another; raises without a card)."""
     if cfg.family not in _FAMILY_MODULES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (have "
             f"{sorted(_FAMILY_MODULES)})")
-    return Model(cfg=cfg, device=resolve_device(device))
+    return Model(cfg=cfg, device=resolve_device(device),
+                 long_context=long_context)
 
 
 # ---------------------------------------------------------------------------
@@ -156,22 +213,26 @@ def _timing_hook(batched, arg_maker, *, runs: int = 3, warmup: int = 1):
     ``OpLatencyCurve`` buckets.  Each timed call ends in a synchronise of
     the devices holding its outputs (a CUDA call returns at launch);
     ``out_bytes`` is ``numel x element_size`` over the output columns
-    (the stage returns a flat tuple of tensors).  Building the hook
-    measures nothing: only calling it does."""
+    (the stage returns one tensor or a flat tuple of them).  Building the
+    hook measures nothing: only calling it does."""
     import statistics
     import time
+
+    def call(args):
+        out = batched(*args)
+        out = out if isinstance(out, tuple) else (out,)
+        synchronize(out)
+        return out
 
     def hook(b: int) -> Dict[str, Any]:
         args = arg_maker(b)
         out = None
         for _ in range(warmup):
-            out = batched(*args)
-            synchronize(out)
+            out = call(args)
         ts = []
         for _ in range(runs):
             t0 = time.perf_counter()
-            out = batched(*args)
-            synchronize(out)
+            out = call(args)
             ts.append(time.perf_counter() - t0)
         mean = sum(ts) / len(ts)
         cv = (statistics.stdev(ts) / mean) if len(ts) > 1 and mean > 0 \
@@ -207,7 +268,17 @@ def model_stage_op(model: Model, params, stage: str, *,
         return _unflatten(paths, [torch.movedim(l, 0, ax)
                                   for l, ax in zip(leaves, batch_axes)])
 
-    if stage == "prefill":
+    if stage == "logits":
+        def batched(tokens):
+            return model.logits(params, {"tokens": tokens})[:, -1]
+
+        fn = _stage_fn(f"{model_name}_logits", ("tokens",), batched, 1)
+        names = ["logits"]
+
+        def arg_maker(b):
+            return (torch.zeros((b, seq_len), dtype=torch.int32,
+                                device=model.device),)
+    elif stage == "prefill":
         def batched(tokens):
             logits, cache = model.prefill(params, {"tokens": tokens},
                                           cache_len)
@@ -218,6 +289,7 @@ def model_stage_op(model: Model, params, stage: str, *,
 
         fn = _stage_fn(f"{model_name}_prefill", ("tokens",), batched,
                        2 + len(paths))
+        names = list(state_names)
 
         def arg_maker(b):
             return (torch.zeros((b, seq_len), dtype=torch.int32,
@@ -231,29 +303,32 @@ def model_stage_op(model: Model, params, stage: str, *,
 
         fn = _stage_fn(f"{model_name}_decode", tuple(state_names), batched,
                        2 + len(paths))
+        names = list(state_names)
 
         def arg_maker(b):
             zeros = torch.zeros((b,), dtype=torch.int32, device=model.device)
             return (zeros, zeros.clone(),
                     *_split(model.init_cache(b, cache_len)))
     else:
-        raise ValueError(f"unknown stage {stage!r} (prefill | decode)")
+        raise ValueError(f"unknown stage {stage!r} "
+                         "(logits | prefill | decode)")
     hook = _timing_hook(batched, arg_maker, runs=runs) if measure else None
-    return ops.ModelOp(fn=fn, names=list(state_names),
+    return ops.ModelOp(fn=fn, names=names,
                        model_name=model_name, stage=stage, cost_hook=hook)
 
 
 def stage_input_specs(model: Model, stage: str, *, seq_len: int = 32,
                       cache_len: int = 64) -> Dict[str, torch.Tensor]:
     """Row-level input column specs for one serving stage, as meta tensors
-    (shape + dtype, no storage): ``prefill`` consumes a token column;
-    ``decode`` consumes the batch-leading cache-state columns
+    (shape + dtype, no storage): ``logits``/``prefill`` consume a token
+    column; ``decode`` consumes the batch-leading cache-state columns
     ``tok``/``pos``/``c{i}``."""
     i32 = torch.int32
-    if stage == "prefill":
+    if stage in ("logits", "prefill"):
         return {"tokens": torch.empty((seq_len,), dtype=i32, device="meta")}
     if stage != "decode":
-        raise ValueError(f"unknown stage {stage!r} (prefill | decode)")
+        raise ValueError(f"unknown stage {stage!r} "
+                         "(logits | prefill | decode)")
     _, axes, leaves = _cache_layout(model, cache_len)
     specs = {"tok": torch.empty((), dtype=i32, device="meta"),
              "pos": torch.empty((), dtype=i32, device="meta")}

@@ -1,15 +1,34 @@
-"""Decoder-only dense transformer (port of the reference package's
-``models/transformer.py``, dense family: yi, glm4, granite).
+"""Decoder-only transformer (port of the reference package's
+``models/transformer.py``: the dense family — yi, glm4, granite and
+gemma2 — and the vlm family, llama-3.2-vision; MoE is not ported yet).
 
-Parameters keep the reference's layer-stacked layout (``blocks/"0"/...``
+Layers are grouped into the smallest repeating *block*, as in the
+reference:
+
+* dense (yi, glm4, granite):  block = [attn+mlp]               x L
+* gemma2:                     block = [local, global]          x L/2
+* llama-3.2-vision:           block = [plain x4, cross+plain]  x L/5
+
+Parameters keep the reference's layer-stacked layout (``blocks/"<i>"/...``
 leaves carry the block axis first), so bridged JAX params drop straight
 in; a Python loop over that axis replaces ``lax.scan``.  KV caches are
-stacked the same way: ``k0``/``v0`` ``[n_blocks, B, W, K, hd]`` ring
-buffers and ``pos0`` ``[n_blocks, B, W]`` slot positions (-1 = empty).
+stacked the same way: ``k<i>``/``v<i>`` ``[n_blocks, B, W, K, hd]`` ring
+buffers and ``pos<i>`` ``[n_blocks, B, W]`` slot positions (-1 = empty);
+with ``kv_quant`` the ring holds int8 values and ``ks<i>``/``vs<i>``
+``[n_blocks, B, W, K]`` f32 scales; a cross layer adds the media K/V
+``ck<i>``/``cv<i>`` ``[n_blocks, B, M, K, hd]``.
 
-``cfg.use_kernels`` selects the CUDA kernels at the two attention sites
-(the prefill's flash attention and the decode step's decode attention);
-on CPU tensors the kernel wrappers run their plain versions.
+The prefill keeps the reference's ring layout: a layer of window W < S
+stores positions S-W..S-1 at slots 0..W-1, while a decode step writes
+position p at slot ``p % W``.  When S > W and S % W != 0 the first decode
+steps overwrite keys still inside the window; the reference does the
+same, and the port keeps it for parity (ROADMAP.md §3).
+
+``cfg.use_kernels`` selects the CUDA kernels at the two self-attention
+sites (the prefill's flash attention and the decode step's decode
+attention); on CPU tensors the kernel wrappers run their plain versions.
+Cross attention stays plain PyTorch, as in the reference, which calls no
+Pallas kernel there.
 """
 from __future__ import annotations
 
@@ -28,46 +47,64 @@ from repro_torch.models import layers
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     window: int = 0            # 0 = full attention
+    has_cross: bool = False    # gated cross-attention (vlm)
 
 
-#: config fields that change the reference's dense layout, cache or math
-#: and that this module does not read yet: field -> its default
-UNPORTED_FIELDS = {"kv_quant": False, "local_global_pattern": 0,
-                   "post_norms": False, "num_experts": 0,
-                   "moe_layer_period": 1}
+#: config fields that change the reference's layout, cache or math and
+#: that this module does not read yet (MoE): field -> its default
+UNPORTED_FIELDS = {"num_experts": 0, "moe_layer_period": 1}
 
 
-def block_layout(cfg: ModelConfig) -> Tuple[List[LayerSpec], int]:
-    """Return (specs for one block, n_blocks).  Dense only; a config that
-    sets a field of ``UNPORTED_FIELDS`` raises rather than being served
-    as if the field were unset."""
-    if cfg.family != "dense":
+def block_layout(cfg: ModelConfig, *, long_context: bool = False
+                 ) -> Tuple[List[LayerSpec], int]:
+    """Return (specs for one block, n_blocks).  A config of another
+    family, or one that sets a field of ``UNPORTED_FIELDS``, raises
+    rather than being served as if the field were unset."""
+    if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            f"family {cfg.family!r} is not ported yet (dense and vlm only)")
     unported = {f: getattr(cfg, f) for f, default in UNPORTED_FIELDS.items()
                 if getattr(cfg, f) != default}
     if unported:
         raise NotImplementedError(
             f"{cfg.name}: config fields {unported} are not ported yet")
-    return [LayerSpec()], cfg.num_layers
+    L = cfg.num_layers
+    if cfg.family == "vlm" and cfg.cross_attn_period:
+        p = cfg.cross_attn_period
+        if L % p:
+            raise ValueError(f"{cfg.name}: {L} layers do not divide into "
+                             f"blocks of {p}")
+        return [LayerSpec() for _ in range(p - 1)] + [
+            LayerSpec(has_cross=True)], L // p
+    if cfg.local_global_pattern:  # gemma2: [local, global] pairs
+        p = cfg.local_global_pattern
+        if L % p:
+            raise ValueError(f"{cfg.name}: {L} layers do not divide into "
+                             f"blocks of {p}")
+        w_global = cfg.sliding_window if (
+            long_context and cfg.long_context_windowed) else 0
+        return [LayerSpec(window=cfg.sliding_window)
+                for _ in range(p - 1)] + [LayerSpec(window=w_global)], L // p
+    return [LayerSpec()], L
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device: DeviceLike = None) -> Dict[str, Any]:
+                device: DeviceLike = None, *, long_context: bool = False
+                ) -> Dict[str, Any]:
     """Random weights with the reference's shapes and scales
     (``transformer.py:init_params``): normal(0, 1/sqrt(fan_in)) matrices,
-    normal(0, 1/sqrt(d)) embedding, zero rmsnorm scales.  The draws come
-    from ``generator`` (seed 0 when None) on ``device``; they are not the
-    reference's ``jax.random`` draws — bridge those with
-    :func:`repro_torch.interop.params_from_numpy`."""
+    normal(0, 1/sqrt(d)) embedding, zero rmsnorm scales, zero f32 cross
+    ``gate``s.  The draws come from ``generator`` (seed 0 when None) on
+    ``device``; they are not the reference's ``jax.random`` draws —
+    bridge those with :func:`repro_torch.interop.params_from_numpy`."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     dtype = torch_dtype(cfg.dtype)
-    specs, n = block_layout(cfg)
+    specs, n = block_layout(cfg, long_context=long_context)
     D, hd, F = cfg.d_model, cfg.head_dim, cfg.d_ff
     Hp, Kp = cfg.padded_heads(1), cfg.replicated_kv_heads(1)
 
@@ -75,24 +112,40 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         return layers.dense_init(shape, dtype, fan_in=fan_in,
                                  generator=generator, device=dev)
 
+    def norm(lead=(n,)):
+        return layers.init_norm(D, cfg.norm, dtype, dev, lead=lead)
+
     params: Dict[str, Any] = {
         "embed": dense((cfg.padded_vocab, D), D),
-        "final_norm": {"scale": torch.zeros((D,), dtype=dtype, device=dev)},
+        "final_norm": norm(()),
         "blocks": {},
     }
-    for i, _spec in enumerate(specs):
+    for i, spec in enumerate(specs):
         mlp = {"w_up": dense((n, D, F), D), "w_down": dense((n, F, D), F)}
         if cfg.gated_mlp:
             mlp["w_gate"] = dense((n, D, F), D)
-        params["blocks"][str(i)] = {
-            "ln1": {"scale": torch.zeros((n, D), dtype=dtype, device=dev)},
+        lp: Dict[str, Any] = {
+            "ln1": norm(),
             "attn": {"wq": dense((n, D, Hp * hd), D),
                      "wk": dense((n, D, Kp * hd), D),
                      "wv": dense((n, D, Kp * hd), D),
                      "wo": dense((n, Hp * hd, D), Hp * hd)},
-            "ln2": {"scale": torch.zeros((n, D), dtype=dtype, device=dev)},
+            "ln2": norm(),
             "mlp": mlp,
         }
+        if cfg.post_norms:
+            lp["post_ln1"] = norm()
+            lp["post_ln2"] = norm()
+        if spec.has_cross:
+            lp["cross"] = {
+                "ln": norm(),
+                "wq": dense((n, D, Hp * hd), D),
+                "wk": dense((n, D, Kp * hd), D),
+                "wv": dense((n, D, Kp * hd), D),
+                "wo": dense((n, Hp * hd, D), Hp * hd),
+                "gate": torch.zeros((n,), dtype=torch.float32, device=dev),
+            }
+        params["blocks"][str(i)] = lp
     return params
 
 
@@ -138,35 +191,78 @@ def _self_attention_full(x, ap, cfg: ModelConfig, spec: LayerSpec,
 
 
 def _self_attention_decode(x, ap, cfg: ModelConfig, spec: LayerSpec, pos,
-                           kc, vc, pc):
-    """One-token decode.  x: [B,1,D]; kc/vc: [B,W,Kp,hd] and pc: [B,W]
-    slot positions (-1 = empty) — this layer's slices of the decode
+                           kc, vc, pc, scales=None):
+    """One-token decode.  x: [B,1,D]; kc/vc: [B,W,Kp,hd] (int8 when
+    ``cfg.kv_quant``, with ``scales`` = (ks, vs) f32 [B,W,Kp]) and pc:
+    [B,W] slot positions (-1 = empty) — this layer's slices of the decode
     step's private cache copy, written IN PLACE (the caller cloned the
-    cache, so the table columns it came from are never touched).
-    pos: [B].  Returns out."""
+    cache, so the table columns it came from are never touched).  With
+    ``kv_quant`` the new key and value are quantized into their slot and
+    the whole ring is dequantized before the attention, in the
+    reference's order.  pos: [B].  Returns out."""
     q, k, v = project_qkv(x, ap, cfg)
     q = layers.apply_rope(q, pos[:, None], cfg.rope_theta)
     k = layers.apply_rope(k, pos[:, None], cfg.rope_theta)
     W = kc.shape[1]
     slot = (pos % W).long()                                       # [B]
     b_idx = torch.arange(x.shape[0], device=x.device)
-    kc[b_idx, slot] = k[:, 0]
-    vc[b_idx, slot] = v[:, 0]
+    if cfg.kv_quant:
+        ks, vs = scales
+        kq, ksc = layers.kv_quantize(k[:, 0])
+        vq, vsc = layers.kv_quantize(v[:, 0])
+        kc[b_idx, slot] = kq
+        vc[b_idx, slot] = vq
+        ks[b_idx, slot] = ksc
+        vs[b_idx, slot] = vsc
+        k_read = layers.kv_dequantize(kc, ks, k.dtype)
+        v_read = layers.kv_dequantize(vc, vs, v.dtype)
+    else:
+        kc[b_idx, slot] = k[:, 0]
+        vc[b_idx, slot] = v[:, 0]
+        k_read, v_read = kc, vc
     pc[b_idx, slot] = pos.to(pc.dtype)
     if cfg.use_kernels:
         from repro_torch.kernels import ops as kops
         # [B,W,K,hd] -> [B,K,W,hd] is a view; the kernel reads strides
         out = kops.decode_attention(
-            q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), pc,
+            q[:, 0], k_read.transpose(1, 2), v_read.transpose(1, 2), pc,
             pos.to(torch.int32), window=spec.window,
             softcap=cfg.attn_logit_softcap,
             scale=_attn_scale(cfg))[:, None]
     else:
         out = layers.decode_attention(
-            q, kc, vc, q_position=pos, k_positions=pc,
+            q, k_read, v_read, q_position=pos, k_positions=pc,
             window=spec.window, softcap=cfg.attn_logit_softcap,
             scale=_attn_scale(cfg))
     return out.reshape(x.shape[0], 1, -1) @ ap["wo"]
+
+
+def _cross_attention(x, cp, cfg: ModelConfig, media_kv):
+    """Gated cross attention (plain, as in the reference).  media_kv =
+    (k [B,M,Kp,hd], v [B,M,Kp,hd])."""
+    B, S, _ = x.shape
+    hd, Hp = cfg.head_dim, cfg.padded_heads(1)
+    xq = layers.apply_norm(x, cp["ln"], cfg.norm)
+    q = (xq @ cp["wq"]).reshape(B, S, Hp, hd)
+    mk, mv = media_kv
+    M = mk.shape[1]
+    out = layers.chunked_attention(
+        q, mk, mv,
+        q_positions=torch.zeros((S,), dtype=torch.int32, device=x.device),
+        k_positions=torch.arange(M, dtype=torch.int32, device=x.device),
+        causal=False, window=0, softcap=0.0, chunk_q=min(1024, S),
+        chunk_k=M, scale=_attn_scale(cfg))
+    out = out.reshape(B, S, -1) @ cp["wo"]
+    return torch.tanh(cp["gate"]).to(x.dtype) * out
+
+
+def media_kv_from_embeddings(media, cp, cfg: ModelConfig):
+    """Project stub media embeddings [B,M,D] to cross-attn K/V."""
+    B, M, _ = media.shape
+    hd, Kp = cfg.head_dim, cfg.replicated_kv_heads(1)
+    mk = (media @ cp["wk"]).reshape(B, M, Kp, hd)
+    mv = (media @ cp["wv"]).reshape(B, M, Kp, hd)
+    return mk, mv
 
 
 def _ffn(x, lp, cfg: ModelConfig):
@@ -177,18 +273,26 @@ def _ffn(x, lp, cfg: ModelConfig):
 # full-sequence forward (prefill)
 # ---------------------------------------------------------------------------
 @torch.no_grad()
-def forward(params, tokens, cfg: ModelConfig, *, build_cache: bool = False,
-            cache_len: Optional[int] = None, chunk: int = 1024):
+def forward(params, tokens, cfg: ModelConfig, *, media=None,
+            build_cache: bool = False, cache_len: Optional[int] = None,
+            long_context: bool = False, chunk: int = 1024):
     """tokens: [B, S] -> logits [B, S, V].  If ``build_cache`` also returns
     the decode cache (prefill) with ring semantics: a layer of window W
-    keeps the last W positions when S >= W, else pads with -1 slots."""
-    specs, n_blocks = block_layout(cfg)
+    keeps the last W positions when S >= W, else pads with -1 slots.
+    ``media`` [B, M, D] feeds the cross layers (vlm); without it they are
+    skipped and the cache has no ``ck``/``cv`` leaves, as in the
+    reference."""
+    specs, n_blocks = block_layout(cfg, long_context=long_context)
     B, S = tokens.shape
     dev = tokens.device
     positions = torch.arange(S, dtype=torch.int32, device=dev)
     x = layers.embed_lookup(params["embed"], tokens,
                             scale_by_dim=cfg.embedding_scale)
     caches: Dict[str, List[torch.Tensor]] = {}
+
+    def keep(name, t):
+        caches.setdefault(name, []).append(t)
+
     for j in range(n_blocks):
         blk = layers.layer_slice(params["blocks"], j)
         for i, spec in enumerate(specs):
@@ -196,9 +300,21 @@ def forward(params, tokens, cfg: ModelConfig, *, build_cache: bool = False,
             h = layers.apply_norm(x, lp["ln1"], cfg.norm)
             attn_out, k, v = _self_attention_full(h, lp["attn"], cfg, spec,
                                                   positions, chunk=chunk)
+            if cfg.post_norms:
+                attn_out = layers.apply_norm(attn_out, lp["post_ln1"],
+                                             cfg.norm)
             x = x + attn_out
+            if spec.has_cross and media is not None:
+                mkv = media_kv_from_embeddings(media, lp["cross"], cfg)
+                x = x + _cross_attention(x, lp["cross"], cfg, mkv)
+                if build_cache:
+                    keep(f"ck{i}", mkv[0])
+                    keep(f"cv{i}", mkv[1])
             h = layers.apply_norm(x, lp["ln2"], cfg.norm)
-            x = x + _ffn(h, lp, cfg)
+            ffn_out = _ffn(h, lp, cfg)
+            if cfg.post_norms:
+                ffn_out = layers.apply_norm(ffn_out, lp["post_ln2"], cfg.norm)
+            x = x + ffn_out
             if build_cache:
                 W = spec.window if spec.window else (cache_len or S)
                 W = min(W, cache_len or S)
@@ -212,9 +328,17 @@ def forward(params, tokens, cfg: ModelConfig, *, build_cache: bool = False,
                     ps = torch.cat([positions, torch.full(
                         (pad,), -1, dtype=torch.int32, device=dev)]
                     ).expand(B, W)
-                caches.setdefault(f"k{i}", []).append(ks)
-                caches.setdefault(f"v{i}", []).append(vs)
-                caches.setdefault(f"pos{i}", []).append(ps)
+                if cfg.kv_quant:
+                    kq, ksc = layers.kv_quantize(ks)
+                    vq, vsc = layers.kv_quantize(vs)
+                    keep(f"k{i}", kq)
+                    keep(f"ks{i}", ksc)
+                    keep(f"v{i}", vq)
+                    keep(f"vs{i}", vsc)
+                else:
+                    keep(f"k{i}", ks)
+                    keep(f"v{i}", vs)
+                keep(f"pos{i}", ps)
     x = layers.apply_norm(x, params["final_norm"], cfg.norm)
     logits = layers.unembed(x, params["embed"],
                             softcap=cfg.final_logit_softcap)
@@ -227,34 +351,57 @@ def forward(params, tokens, cfg: ModelConfig, *, build_cache: bool = False,
 # decode
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               device: DeviceLike = None):
-    """Empty decode cache (stacked over blocks).  ``device="meta"`` gives
-    shapes and dtypes without allocating."""
+               device: DeviceLike = None, *, long_context: bool = False,
+               media_tokens: int = 0):
+    """Empty decode cache (stacked over blocks): zero K/V (int8 with unit
+    f32 scales under ``kv_quant``), -1 positions, and zero media K/V of
+    ``media_tokens`` (default ``cfg.num_media_tokens``) rows for each
+    cross layer.  ``device="meta"`` gives shapes and dtypes without
+    allocating."""
     dev = resolve_device(device)
-    specs, n_blocks = block_layout(cfg)
+    specs, n_blocks = block_layout(cfg, long_context=long_context)
     Kp, hd = cfg.replicated_kv_heads(1), cfg.head_dim
     dtype = torch_dtype(cfg.dtype)
+    kv_dtype = torch.int8 if cfg.kv_quant else dtype
     cache = {}
     for i, spec in enumerate(specs):
         W = min(spec.window, cache_len) if spec.window else cache_len
         cache[f"k{i}"] = torch.zeros((n_blocks, batch, W, Kp, hd),
-                                     dtype=dtype, device=dev)
+                                     dtype=kv_dtype, device=dev)
         cache[f"v{i}"] = torch.zeros((n_blocks, batch, W, Kp, hd),
-                                     dtype=dtype, device=dev)
+                                     dtype=kv_dtype, device=dev)
         cache[f"pos{i}"] = torch.full((n_blocks, batch, W), -1,
                                       dtype=torch.int32, device=dev)
+        if cfg.kv_quant:
+            cache[f"ks{i}"] = torch.ones((n_blocks, batch, W, Kp),
+                                         dtype=torch.float32, device=dev)
+            cache[f"vs{i}"] = torch.ones((n_blocks, batch, W, Kp),
+                                         dtype=torch.float32, device=dev)
+        if spec.has_cross:
+            M = media_tokens or cfg.num_media_tokens
+            cache[f"ck{i}"] = torch.zeros((n_blocks, batch, M, Kp, hd),
+                                          dtype=dtype, device=dev)
+            cache[f"cv{i}"] = torch.zeros((n_blocks, batch, M, Kp, hd),
+                                          dtype=dtype, device=dev)
     return cache
 
 
+#: cache leaves a decode step reads and never writes (the media K/V)
+_READ_ONLY = ("ck", "cv")
+
+
 @torch.no_grad()
-def decode_step(params, tokens, pos, cache, cfg: ModelConfig):
+def decode_step(params, tokens, pos, cache, cfg: ModelConfig, *,
+                long_context: bool = False):
     """tokens: [B, 1]; pos: [B] absolute position of the new token.
     Returns (logits [B, 1, V], new_cache).  The input cache is left as it
     was: the step writes its new slots into a copy (the reference's
     ``.at[].set`` is functional, and the cache tensors may be views of
-    table columns that other consumers share)."""
-    specs, n_blocks = block_layout(cfg)
-    new_cache = {k: v.clone() for k, v in cache.items()}
+    table columns that other consumers share); the media K/V, which no
+    step writes, are passed on as they are."""
+    specs, n_blocks = block_layout(cfg, long_context=long_context)
+    new_cache = {k: v if k.startswith(_READ_ONLY) else v.clone()
+                 for k, v in cache.items()}
     x = layers.embed_lookup(params["embed"], tokens,
                             scale_by_dim=cfg.embedding_scale)
     for j in range(n_blocks):
@@ -262,11 +409,23 @@ def decode_step(params, tokens, pos, cache, cfg: ModelConfig):
         for i, spec in enumerate(specs):
             lp = blk[str(i)]
             h = layers.apply_norm(x, lp["ln1"], cfg.norm)
-            x = x + _self_attention_decode(
+            scales = ((new_cache[f"ks{i}"][j], new_cache[f"vs{i}"][j])
+                      if cfg.kv_quant else None)
+            attn_out = _self_attention_decode(
                 h, lp["attn"], cfg, spec, pos, new_cache[f"k{i}"][j],
-                new_cache[f"v{i}"][j], new_cache[f"pos{i}"][j])
+                new_cache[f"v{i}"][j], new_cache[f"pos{i}"][j], scales)
+            if cfg.post_norms:
+                attn_out = layers.apply_norm(attn_out, lp["post_ln1"],
+                                             cfg.norm)
+            x = x + attn_out
+            if spec.has_cross:
+                mkv = (new_cache[f"ck{i}"][j], new_cache[f"cv{i}"][j])
+                x = x + _cross_attention(x, lp["cross"], cfg, mkv)
             h = layers.apply_norm(x, lp["ln2"], cfg.norm)
-            x = x + _ffn(h, lp, cfg)
+            ffn_out = _ffn(h, lp, cfg)
+            if cfg.post_norms:
+                ffn_out = layers.apply_norm(ffn_out, lp["post_ln2"], cfg.norm)
+            x = x + ffn_out
     x = layers.apply_norm(x, params["final_norm"], cfg.norm)
     logits = layers.unembed(x, params["embed"],
                             softcap=cfg.final_logit_softcap)

@@ -1,8 +1,7 @@
 """Serving-layer building blocks: request batching, overload protection
 (admission control, request classes, deadlines), and fault tolerance
-(typed retries, fault injection, straggler hedging).  Port of the
-reference package's ``serving/`` without ``engine`` (ROADMAP.md §1,
-item 4).
+(typed retries, fault injection, straggler hedging), and the model
+engine.  Port of the reference package's ``serving/``.
 
 * :mod:`repro_torch.serving.batcher` — deadline-aware micro-batching
   (``Batcher``): adaptive coalescing windows, earliest-deadline-first
@@ -19,13 +18,16 @@ item 4).
   redispatch;
 * :mod:`repro_torch.serving.faults` — seeded deterministic fault
   injection (``FaultPlan`` / ``FaultInjector``: crash, hang, transient) and
-  profile-derived straggler-hedge delays (``install_hedging``).
+  profile-derived straggler-hedge delays (``install_hedging``);
+* :mod:`repro_torch.serving.engine` — ``ServingEngine`` (prefill, decode
+  and ``generate``) and ``make_engine``.
 """
 from repro_torch.serving.admission import (AdmissionController,
                                            ClassPolicy, DeadlineExceeded,
                                            Decision, Overloaded,
                                            TokenBucket, default_classes)
 from repro_torch.serving.batcher import Batcher, BatchItem
+from repro_torch.serving.engine import ServingEngine, make_engine
 from repro_torch.serving.faults import (FaultInjector, FaultPlan, FaultSpec,
                                         hedge_delays_from_profile,
                                         install_hedging)
@@ -37,7 +39,7 @@ __all__ = [
     "AdmissionController", "Batcher", "BatchItem", "ClassPolicy",
     "CompletionToken", "DeadlineExceeded", "Decision", "ExecutorLost",
     "FaultInjector", "FaultPlan", "FaultSpec", "Overloaded", "Permanent",
-    "RetryPolicy", "TokenBucket", "Transient", "TransientFault",
-    "default_classes", "hedge_delays_from_profile", "install_hedging",
-    "is_transient",
+    "RetryPolicy", "ServingEngine", "TokenBucket", "Transient",
+    "TransientFault", "default_classes", "hedge_delays_from_profile",
+    "install_hedging", "is_transient", "make_engine",
 ]

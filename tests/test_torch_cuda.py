@@ -861,3 +861,130 @@ def test_warm_deployment_pays_the_allocator_growth_before_traffic(dev):
     want = [dc.reference_decode(plain, params, toks[i:i + 1].to(dev))[0]
             for i in range(4)]
     assert [int(r.values[0]) for r in out.rows] == want
+
+
+# -- gemma2-9b's shapes, the int8 KV cache, the vlm and the engine ----------
+
+def test_flash_gemma2_prefill_shape(dev):
+    """gemma2-9b's local layer on an 8192-token prompt ([B, S, H, hd]
+    views, H=16, K=8, hd=256, window 4096, softcap 50, scale 1/16): the
+    SIMT instance (the tensor-core one takes head_dim 64 and 128)."""
+    B, S, H, K, hd = 1, 8192, 16, 8, 256
+    q = _rand((B, S, H, hd), torch.bfloat16, dev, 40).transpose(1, 2)
+    k = _rand((B, S, K, hd), torch.bfloat16, dev, 41).transpose(1, 2)
+    v = _rand((B, S, K, hd), torch.bfloat16, dev, 42).transpose(1, 2)
+    kw = dict(causal=True, window=4096, softcap=50.0, scale=1.0 / 16)
+    got = kops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert kops.flash_attention.last_instance == "simt"
+    _close(got, flash_attention_plain(q, k, v, **kw), torch.bfloat16)
+
+
+def gemma2_ring(dev):
+    """A 4096-slot ring that has wrapped: slot s holds position 4096 + s;
+    the query positions make row 0 see every slot, row 1 lose slot 0 to
+    the window, row 2 lose the slots past it to causality and row 3 lose
+    half the ring to the window."""
+    B, W = 4, 4096
+    kpos = (4096 + torch.arange(W, dtype=torch.int32)).expand(B, W)
+    qpos = torch.tensor([8191, 8192, 8000, 10000], dtype=torch.int32)
+    return kpos.contiguous().to(dev), qpos.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_gemma2_wrapped_ring(dev, dtype):
+    B, H, K, W, hd = 4, 16, 8, 4096, 256
+    q = _rand((B, H, hd), dtype, dev, 43)
+    kc = _rand((B, W, K, hd), dtype, dev, 44).transpose(1, 2)
+    vc = _rand((B, W, K, hd), dtype, dev, 45).transpose(1, 2)
+    kpos, qpos = gemma2_ring(dev)
+    kw = dict(window=4096, softcap=50.0, scale=1.0 / 16)
+    got = kops.decode_attention(q, kc, vc, kpos, qpos, **kw)
+    torch.cuda.synchronize()
+    _close(got, decode_attention_plain(q, kc, vc, kpos, qpos, **kw), dtype)
+
+
+def test_kv_quant_round_trip_on_card(dev):
+    """The int8 cache's quantizer on the card gives the CPU's values and
+    scales exactly (f32 division and round half to even), and a round
+    trip is within half a step of each (slot, head), up to the two
+    roundings of f32."""
+    from repro_torch.models import layers
+
+    x = _rand((4, 512, 8, 256), torch.bfloat16, dev, 46, scale=2.0)
+    q, s = layers.kv_quantize(x)
+    q_cpu, s_cpu = layers.kv_quantize(x.cpu())
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert torch.equal(q.cpu(), q_cpu) and torch.equal(s.cpu(), s_cpu)
+    back = layers.kv_dequantize(q, s, torch.float32)
+    assert torch.equal(back.cpu(),
+                       layers.kv_dequantize(q_cpu, s_cpu, torch.float32))
+    # |q s - x| <= s / 2 in exact arithmetic; x / s and q * s each round
+    # once, by at most 2^-24 of 127 steps: 1.6e-5 of s in all
+    assert bool(((back - x.float()).abs()
+                 <= s[..., None] * (0.5 + 2e-5)).all())
+
+
+@pytest.mark.parametrize("arch,kv_quant", [("gemma2-9b", False),
+                                           ("gemma2-9b", True),
+                                           ("yi-9b", True)])
+def test_tiny_families_on_card_match_plain(dev, arch, kv_quant):
+    """Tiny f32 gemma2 (window, softcaps, post-norms) and the int8 cache
+    on the card: the kernel path's prefill logits are the plain path's
+    within 1e-4, its greedy tokens equal the plain path's past the local
+    window, and the kernels launched."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServingEngine
+
+    cfg = dataclasses.replace(get_tiny_config(arch), dtype="float32",
+                              use_kernels=True, kv_quant=kv_quant)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    plain = build_model(dataclasses.replace(cfg, use_kernels=False))
+    toks = torch.randint(0, cfg.vocab_size, (2, 80), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1)).to(dev)
+    lg_k, _ = model.prefill(params, {"tokens": toks}, 96)
+    lg_p, _ = plain.prefill(params, {"tokens": toks}, 96)
+    torch.testing.assert_close(lg_k, lg_p, atol=1e-4, rtol=1e-4)
+    f0 = kops.flash_attention.launches
+    d0 = kops.decode_attention.launches
+    got = ServingEngine(model, cache_len=96).generate(
+        params, {"tokens": toks}, 8)
+    assert kops.flash_attention.launches - f0 == cfg.num_layers
+    assert kops.decode_attention.launches - d0 == cfg.num_layers * 8
+    want = ServingEngine(plain, cache_len=96).generate(
+        params, {"tokens": toks}, 8)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_tiny_vlm_on_card_media_and_logits_stage(dev):
+    """Tiny f32 llama-3.2-vision with its cross gates opened: generate
+    with media on the card equals the plain path, the media change the
+    tokens' logits, and the logits stage runs batched on the card."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.models import build_model
+    from repro_torch.models.registry import model_stage_op
+    from repro_torch.serving import ServingEngine
+
+    cfg = dataclasses.replace(get_tiny_config("llama-3.2-vision-11b"),
+                              dtype="float32", use_kernels=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    params["blocks"][str(cfg.cross_attn_period - 1)]["cross"]["gate"].fill_(
+        0.5)
+    plain = build_model(dataclasses.replace(cfg, use_kernels=False))
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1)).to(dev)
+    media = _rand((2, cfg.num_media_tokens, cfg.d_model), torch.float32,
+                  dev, 47, scale=0.1)
+    batch = {"tokens": toks, "media": media}
+    got = ServingEngine(model, cache_len=32).generate(params, batch, 6)
+    want = ServingEngine(plain, cache_len=32).generate(params, batch, 6)
+    np.testing.assert_array_equal(got, want)
+    with_media = model.logits(params, batch)
+    without = model.logits(params, {"tokens": toks})
+    assert float((with_media - without).abs().max()) > 1e-3
+    op = model_stage_op(model, params, "logits", measure=False)
+    rows = op.fn.__batched__(toks)
+    torch.testing.assert_close(rows, without[:, -1], atol=1e-5, rtol=1e-5)
