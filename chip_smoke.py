@@ -18,11 +18,13 @@ ignored):
    work alone (``device_ms``, see ``time_ms``) and the host time per
    call.  yi-9b: H=32, K=4, hd=128; decode B=4 over a
    1024-slot ring cache with empty -1 slots, flash B=4, S=256.  gemma2-
-   9b (H=16, K=8, hd=256, softcap 50, window 4096, scale 1/16): flash
-   [1, 16, 8192, 256] causal on the SIMT instance (asserted), decode B=4
-   over a 4096-slot ring that has wrapped (``phase_gemma2_kernels``);
-   SDPA has no softcap, so these rows' ``library_ms`` is null and SDPA's
-   time without the softcap is recorded beside it.  rwkv6-
+   9b (H=16, K=8, hd=256, softcap 50, scale 1/16): flash [1, 16, 8192,
+   256] causal at a local layer (window 4096) and a global one (no
+   window), both on the ping-pong instance (asserted); decode B=4 over
+   a 4096-slot ring that has wrapped (``phase_gemma2_kernels``); SDPA has no
+   softcap, so these rows' ``library_ms`` is null and SDPA's time
+   without the softcap is recorded beside it (the window and causality
+   as a mask, and at the global layer also ``is_causal=True``).  rwkv6-
    1.6b: wkv6 at r/k/v/w [4, 256, 32, 64].  recurrentgemma-2b:
    rglru_scan at [4, 256, 2560].  Asserts that flash ran its tensor-core
    (``wgmma``) instance in bf16 and its SIMT instance in f32, that the
@@ -51,9 +53,12 @@ ignored):
    is held to the bar again with ``lam`` negated (see ``_negate_lam``).
    Then float32 at reduced depth (gemma2-9b, yi-9b and rwkv6 4 layers,
    recurrentgemma 6): the kernel path's greedy tokens equal the plain
-   path's.  gemma2-9b adds (``phase_gemma2``): one 8192-token prompt
-   (cache 8200, 8 decode steps) through the cascade, its token held to
-   the unfused loop and its logits to the plain path's within rel 0.05;
+   path's.  gemma2-9b's flash launches with a window are counted apart
+   (its local layers) for the two gemma2 flash rows.  gemma2-9b adds
+   (``phase_gemma2``): one 8192-token prompt (cache 8200, 8 decode steps)
+   through the cascade, its time printed, its token held to the unfused
+   loop and its logits to the plain path's within rel 0.05, and the
+   flash time of one such prefill under ``torch.profiler``;
    the reference's ring defect printed (4160 tokens) beside an aligned
    control (4096); and ``kv_quant=True`` through the 4 x 256 cascade.
 5. Serving: the serving runtime (request batching, admission and
@@ -148,7 +153,7 @@ KERNELS = ("decode_attention", "flash_attention", "wkv6", "rglru_scan")
 #: and the attention kernels again at gemma2-9b's
 KERNEL_ROWS = ("decode_attention", "flash_attention",
                "decode_attention[gemma2-9b]", "flash_attention[gemma2-9b]",
-               "wkv6", "rglru_scan")
+               "flash_attention[gemma2-9b global]", "wkv6", "rglru_scan")
 T_START = time.perf_counter()
 #: per path: arch, depth of the f32 token check, depth at which the bf16
 #: logits of the kernel path are held to the 0.05 bar (None: full).
@@ -389,6 +394,14 @@ def phase_kernels(torch, dev, flush):
                   f"same function): {r['sdpa_no_softcap_ms']:.4f} ms, device"
                   f" work {r['sdpa_no_softcap_device_ms']:.4f} ms",
                   flush=True)
+        if "sdpa_causal_no_softcap_ms" in r:
+            print(f"    the same with is_causal=True instead of the mask: "
+                  f"{r['sdpa_causal_no_softcap_ms']:.4f} ms, device work "
+                  f"{r['sdpa_causal_no_softcap_device_ms']:.4f} ms",
+                  flush=True)
+        if "no_softcap_ms" in r:
+            print(f"    the kernel WITHOUT the softcap (SDPA's function): "
+                  f"{r['no_softcap_ms']:.4f} ms", flush=True)
         lib_dev, lib_host = "", ""
         if lib is not None:
             lib_dev = f", library {r['library_device_ms']:.4f} ms"
@@ -405,9 +418,9 @@ def phase_kernels(torch, dev, flush):
 #: that has wrapped
 G2_H, G2_K, G2_HD, G2_CAP, G2_WINDOW = 16, 8, 256, 50.0, 4096
 G2_LONG = 8192
-#: calls timed at gemma2's prefill shape (the SIMT instance takes about
-#: 0.1 s a call there)
-G2_FLASH_ITERS = 5
+#: calls timed at gemma2's prefill shape of the plain version and SDPA
+#: with a mask (tens of ms a call)
+G2_PLAIN_ITERS = 5
 G2_NOTE = "— (SDPA has no softcap)"
 
 
@@ -426,12 +439,15 @@ def gemma2_ring(torch, dev, B=4):
 
 def phase_gemma2_kernels(torch, dev, g, flush):
     """Both attention kernels at gemma2-9b's shapes (see ``G2_*``) against
-    their plain versions, in bf16 (the path's dtype): flash on the SIMT
-    instance (asserted: the tensor-core one takes head_dim 64 and 128),
-    decode over the wrapped ring.  SDPA has no softcap, so the rows'
-    ``library_ms`` is null; SDPA's time on the same shapes without the
-    softcap (window and validity as a boolean mask) is recorded beside it
-    under its own name."""
+    their plain versions, in bf16 (the path's dtype): flash at a local
+    and a global layer of the 8192-token prompt on the ping-pong instance
+    (asserted); decode over the wrapped ring.  SDPA has no
+    softcap, so the rows' ``library_ms`` is null; SDPA's time on the same
+    shapes without the softcap (window and causality as a boolean mask)
+    is recorded beside it under its own name, and at the global layer
+    also with ``is_causal=True``, which may take its flash backend; the
+    flash rows also time the kernel without the softcap
+    (``no_softcap_ms``), SDPA's function."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops as kops
@@ -494,54 +510,74 @@ def phase_gemma2_kernels(torch, dev, g, flush):
     }
     del q, kc, vc
 
-    # -- flash, a local layer of the 8192-token prompt ---------------------
+    # -- flash, a local and a global layer of the 8192-token prompt --------
     B, S = 1, G2_LONG
     q, k, v = (torch.randn((B, S, n, hd), generator=g, device=dev).to(
         dt).transpose(1, 2) for n in (H, K, K))          # model's views
-    fkw = dict(causal=True, **kw)
-    got = kops.flash_attention(q, k, v, **fkw)
-    want = flash_attention_plain(q, k, v, **fkw)
-    torch.cuda.synchronize()
-    err = rel_err(got, want)
-    abs_err = float((got.float() - want.float()).abs().max())
-    del want
-    check(bool(torch.isfinite(got).all()) and err < BF16_REL,
-          f"flash_attention at gemma2-9b's prefill shape ([{B}, {H}, {S}, "
-          f"{hd}], K {K}, window {W}, softcap {G2_CAP}): rel err {err} < "
-          f"{BF16_REL} (max abs {abs_err})")
-    instance = kops.flash_attention.last_instance
-    check(instance == "simt", f"flash_attention at head_dim {hd} ran the "
-          f"{instance} instance")
-    el = q.element_size()
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * el
-    pairs = B * H * sum(min(i + 1, W) for i in range(S))  # causal, windowed
     qp = torch.arange(S, device=dev)[:, None]
     kp = torch.arange(S, device=dev)[None, :]
-    mask = (kp <= qp) & (qp - kp < W)
-    it = G2_FLASH_ITERS
+    el = q.element_size()
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * el
+    for name, window in (("flash_attention[gemma2-9b]", W),
+                         ("flash_attention[gemma2-9b global]", 0)):
+        fkw = dict(causal=True, window=window, softcap=G2_CAP, scale=scale)
+        got = kops.flash_attention(q, k, v, **fkw)
+        want = flash_attention_plain(q, k, v, **fkw)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        abs_err = float((got.float() - want.float()).abs().max())
+        finite = bool(torch.isfinite(got).all())
+        del got, want
+        where = (f"gemma2-9b's {'local' if window else 'global'} prefill "
+                 f"shape ([{B}, {H}, {S}, {hd}], K {K}, window {window}, "
+                 f"softcap {G2_CAP})")
+        check(finite and err < BF16_REL,
+              f"flash_attention at {where}: rel err {err} < {BF16_REL} "
+              f"(max abs {abs_err})")
+        instance = kops.flash_attention.last_instance
+        check(instance == "pingpong", f"flash_attention at {where} ran the "
+              f"{instance} instance")
+        # causal (q, k) pairs, in the window when there is one
+        pairs = B * H * sum(min(i + 1, window or S) for i in range(S))
+        mask = (kp <= qp) & (qp - kp < (window or S))
 
-    def sdpa():
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                              scale=scale, enable_gqa=True)
+        def masked():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
 
-    results["flash_attention[gemma2-9b]"] = {
-        "name": "flash_attention[gemma2-9b]", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:95",
-        "shape": f"gemma2-9b: [{B}, {H}, {S}, {hd}], K {K}, causal, window "
-                 f"{W}, softcap {G2_CAP}, scale 1/16",
-        "max_abs_err": abs_err,
-        "plain_ms": time_ms(torch, lambda: flash_attention_plain(
-            q, k, v, **fkw), iters=it, warmup=1, flush=flush),
-        **_bound(nbytes, 2 * 2 * pairs * hd, "bfloat16"),
-        **spans(torch, lambda: kops.flash_attention(q, k, v, **fkw), None,
-                flush, iters=it),
-        "library_note": G2_NOTE,
-        "sdpa_no_softcap_ms": time_ms(torch, sdpa, iters=it, flush=flush),
-        "sdpa_no_softcap_device_ms": time_ms(torch, sdpa, iters=it,
-                                             flush=flush, spin=True),
-        "instance": kops.flash_attention.last_instance,
-    }
+        row = {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:95",
+            "shape": f"gemma2-9b: [{B}, {H}, {S}, {hd}], K {K}, causal, "
+                     f"window {window}, softcap {G2_CAP}, scale 1/16",
+            "max_abs_err": abs_err,
+            "plain_ms": time_ms(torch, lambda: flash_attention_plain(
+                q, k, v, **fkw), iters=G2_PLAIN_ITERS, warmup=1,
+                flush=flush),
+            **_bound(nbytes, 2 * 2 * pairs * hd, "bfloat16"),
+            **spans(torch, lambda: kops.flash_attention(q, k, v, **fkw),
+                    None, flush),
+            "library_note": G2_NOTE,
+            "sdpa_no_softcap_ms": time_ms(torch, masked, iters=G2_PLAIN_ITERS,
+                                          flush=flush),
+            "sdpa_no_softcap_device_ms": time_ms(
+                torch, masked, iters=G2_PLAIN_ITERS, flush=flush, spin=True),
+            "instance": instance,
+        }
+        if not window:
+            def causal():
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, scale=scale, enable_gqa=True)
+
+            row["sdpa_causal_no_softcap_ms"] = time_ms(torch, causal,
+                                                       flush=flush)
+            row["sdpa_causal_no_softcap_device_ms"] = time_ms(
+                torch, causal, flush=flush, spin=True)
+        # the kernel on SDPA's function (no softcap), beside SDPA's times
+        row["no_softcap_ms"] = time_ms(torch, lambda: kops.flash_attention(
+            q, k, v, causal=True, window=window, scale=scale), flush=flush)
+        results[name] = row
     return results
 
 
@@ -652,7 +688,6 @@ def serve(torch, dev, cfg, calls=3, params=None):
     from repro_torch.core.lowering import EXECUTABLE_CACHE
     from repro_torch.core.table import Table
     from repro_torch.examples import decode_cascade as dc
-    from repro_torch.kernels import ops as kops
     from repro_torch.models import build_model
 
     prompts, seq, cache_len, steps = PROMPTS, SEQ, CACHE, STEPS
@@ -673,15 +708,14 @@ def serve(torch, dev, cfg, calls=3, params=None):
         chain = dep.plan.ops[-1].op
         print(dep.explain(), flush=True)
         lats, retraces, out = [], [], None
-        for name in KERNELS:
-            getattr(kops, name).launches = 0
+        _zero_launches()
         for _ in range(calls):
             tr0 = EXECUTABLE_CACHE.traces()
             t0 = time.perf_counter()
             out = dep.execute(table).result(600)
             lats.append(time.perf_counter() - t0)
             retraces.append(EXECUTABLE_CACHE.traces() - tr0)
-        launches = {name: getattr(kops, name).launches for name in KERNELS}
+        launches = _launches()
         dispatches = (chain.batch_dispatches, chain.row_dispatches)
         check(rt.pool.fault_counts["wedge"] == 0,
               f"no wedge detected ({rt.pool.fault_counts})")
@@ -719,12 +753,14 @@ def phase_path(torch, dev, arch, f32_layers, logits_layers, keep=False):
     logits are held to the plain path's within 0.05 at full depth, or at
     ``logits_layers`` where that is set, and then at full depth to the
     plain path's own gap under a last-bit change.  Returns the bf16 run's
-    launches and, with ``keep``, (its model, params, first-call latency
-    in s) for the serving phase, else None."""
+    launches, its flash launches with a window (the local layers) and,
+    with ``keep``, (its model, params, first-call latency in s) for the
+    serving phase, else None."""
     from repro_torch.configs import get_config
     from repro_torch.examples import decode_cascade as dc
     from repro_torch.examples.depth_gap import nudge_f32
-    from repro_torch.models import build_model
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import build_model, transformer
 
     cfg = dataclasses.replace(get_config(arch), use_kernels=True)
     L = cfg.num_layers
@@ -735,6 +771,7 @@ def phase_path(torch, dev, arch, f32_layers, logits_layers, keep=False):
     held = torch.cuda.memory_allocated(dev)
     model, params, toks, got, lats, retraces, dispatches, launches = serve(
         torch, dev, cfg)
+    windowed = kops.flash_attention.windowed_launches
     nparams = sum(t.numel() for t in _leaves(params))
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"  weights: {nparams} params, "
@@ -748,6 +785,11 @@ def phase_path(torch, dev, arch, f32_layers, logits_layers, keep=False):
     check(runs > 0 and launches == want,
           f"launches {launches} == {want} for {runs} prefill dispatches "
           f"x {STEPS} decode steps")
+    if cfg.family == "dense":
+        specs, blocks = transformer.block_layout(cfg)
+        local = blocks * sum(1 for sp in specs if sp.window) * runs
+        check(windowed == local, f"flash launches with a window {windowed}"
+              f" == {local} (the local layers)")
     check(retraces[1:] == [0, 0], f"re-traces per call {retraces}")
     check(len(got) == PROMPTS and all(0 <= t < cfg.vocab_size for t in got),
           f"{PROMPTS} greedy tokens in range: {got}")
@@ -815,7 +857,7 @@ def phase_path(torch, dev, arch, f32_layers, logits_layers, keep=False):
           f"steady {min(lats32) * 1e3} ms", flush=True)
     del model, params, plain32
     _release(torch)
-    return launches, served
+    return launches, windowed, served
 
 
 # -- phase 4, gemma2-9b: the long prompt, the ring defect, the int8 cache ----
@@ -851,6 +893,32 @@ def _greedy_loop(torch, model, params, toks, cache_len, steps):
         step = lg[:, -1] if step is None else step
         pos = pos + 1
     return [int(x) for x in tok], first, step
+
+
+def _flash_profile(torch, model, params, toks, cache_len, top=6):
+    """One prefill of ``toks`` on ``model``'s kernel path under
+    ``torch.profiler``: (flash kernels run, their summed device ms, every
+    kernel's summed device ms, the prefill's host ms ending in a
+    synchronise).  Prints the ``top`` kernel names by device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": toks}, cache_len)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del logits, cache
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    flash = [e.device_time for e in events if "flash_" in e.name]
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"    {ms:10.3f} ms  {name[:90]}", flush=True)
+    return (len(flash), sum(flash) / 1e3,
+            sum(e.device_time for e in events) / 1e3, wall * 1e3)
 
 
 def _ring_gaps(torch, dev, cfg, params, toks):
@@ -895,7 +963,9 @@ def phase_gemma2(torch, dev, cfg, model, params):
     1. One 8192-token prompt (cache ``G2_LONG_CACHE``, ``STEPS`` decode
        steps) through the cascade: its token equals the unfused loop's on
        the kernel path, and the kernel path's logits (prefill and first
-       decode) are the plain path's within rel 0.05.
+       decode) are the plain path's within rel 0.05.  One more prefill of
+       the prompt under ``torch.profiler`` gives the flash kernels' device
+       time beside all kernels'.
     2. The reference's ring defect: after a prompt of S tokens, the first
        decode step's logits against the full forward's at position S, on
        the kernel and the plain path, for S = 4160 (the defect) and 4096
@@ -947,6 +1017,13 @@ def phase_gemma2(torch, dev, cfg, model, params):
     print(f"  {S}-token prompt latency through the cascade: {lat * 1e3} ms;"
           f" peak device memory {torch.cuda.max_memory_allocated(dev)} "
           f"bytes", flush=True)
+    n_flash, flash_ms, kernel_ms, wall_ms = _flash_profile(
+        torch, model, params, toks, C)
+    check(n_flash == cfg.num_layers, f"{S}-token prefill under "
+          f"torch.profiler: {n_flash} flash kernels, one a layer")
+    print(f"  {S}-token prefill on the kernel path under torch.profiler: "
+          f"flash {flash_ms} ms over its {n_flash} launches, of {kernel_ms}"
+          f" ms of device kernel time in {wall_ms} ms", flush=True)
 
     # the ring defect, shown on the card: at full depth in bf16, and at
     # f32 on two blocks, where rounding no longer hides it
@@ -1000,6 +1077,7 @@ def _zero_launches():
 
     for name in KERNELS:
         getattr(kops, name).launches = 0
+    kops.flash_attention.windowed_launches = 0
 
 
 def _burst(dep, toks, idx, **call_kw):
@@ -2659,14 +2737,19 @@ def main() -> int:
         _release(torch)          # nothing of the last path stays allocated
         # each kernel's launches come from the run of the path it is on:
         # yi-9b's for the base rows, gemma2-9b's for its own
-        launches, kept = phase_path(torch, dev, arch, f32_layers,
-                                    logits_layers, keep=arch == "yi-9b")
+        launches, windowed, kept = phase_path(
+            torch, dev, arch, f32_layers, logits_layers, keep=arch == "yi-9b")
         if kept is not None:
             served[arch] = kept  # phase 5 serves yi-9b's weights
         suffix = f"[{arch}]" if f"flash_attention[{arch}]" in kernels else ""
         for name, n in launches.items():
             if n:
                 kernels[name + suffix]["launches"] = n
+        if f"flash_attention[{arch} global]" in kernels:
+            # the local layers' launches carry a window, the global ones not
+            kernels[f"flash_attention[{arch}]"]["launches"] = windowed
+            kernels[f"flash_attention[{arch} global]"]["launches"] = \
+                launches["flash_attention"] - windowed
 
     t0 = _phase("serving", t0)
     _release(torch)
@@ -2694,7 +2777,8 @@ def main() -> int:
             "library_ms"]
     extra = ["device_ms", "library_device_ms", "instance", "shape",
              "library_note", "sdpa_no_softcap_ms",
-             "sdpa_no_softcap_device_ms"]
+             "sdpa_no_softcap_device_ms", "sdpa_causal_no_softcap_ms",
+             "sdpa_causal_no_softcap_device_ms", "no_softcap_ms"]
     line = {"kernels": [{k: kernels[n][k] for k in keys + extra
                          if k in kernels[n]} for n in KERNEL_ROWS]}
     print(smi, flush=True)

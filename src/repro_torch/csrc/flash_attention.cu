@@ -16,12 +16,12 @@
 // memory once, over 3.35 TB/s.  Bytes set the bound at short prompts (the
 // prefill's S = 256 at yi-9b widths), operations at long ones.
 //
-// Two hand-written instances sit behind the one C entry point; the
+// Three hand-written instances sit behind the one C entry point; the
 // wrapper picks one by dtype and head_dim and says which
 // (flash_attention.last_instance):
 //
-// "wgmma" (bf16, head_dim 64 or 128; every dense config in the repo): one
-//   warpgroup of 128 threads per (b * h, 64-row query tile), the query
+// "wgmma" (bf16, head_dim 64 or 128; yi-9b and the other dense configs):
+//   one warpgroup of 128 threads per (b * h, 64-row query tile), the query
 //   tiles with the most kv tiles launched first.  TMA brings the Q tile
 //   and two stages of K and V tiles (64 keys each) into shared memory
 //   with the 128-byte swizzle that wgmma reads, one mbarrier per stage,
@@ -37,12 +37,18 @@
 //   The tensor maps are encoded per call on the host (the caller's strided
 //   [B, S, H, hd] views need no copy); TMA zero-fills rows past S.
 //
-// "simt" (f32, and head dims the tensor-core instance does not take): one
-//   block of 256 threads per (query tile of 32 rows, b * h) with scalar
-//   f32 FMAs on CUDA cores; K and V tiles are staged in shared memory as
-//   f32.  Exact in f32, which the f32 token check needs.
+// "pingpong" (bf16, head_dim 256; gemma2-9b): a producer warp and two
+//   consumer warpgroups per 128-row query tile, the consumers taking
+//   turns at the tensor cores (see namespace ws below).
 //
-// Both accept any S: query rows past S are not stored and keys past S get
+// "simt" (f32, and bf16 at the head dims the tensor-core instances do not
+//   take): one block of 256 threads per (query tile of 32 rows, b * h)
+//   with scalar f32 FMAs on CUDA cores; K and V tiles are staged in
+//   shared memory as f32, and only the kv tiles that hold a valid key for
+//   some row of the tile are computed.  Exact in f32, which the f32 token
+//   check needs.
+//
+// All three accept any S: query rows past S are not stored and keys past S get
 // zero weight, so the ragged edge is masked in the kernel.
 #include <cuda.h>  // CUtensorMap and the driver's types (no -lcuda)
 #include <math.h>
@@ -117,7 +123,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < kMaxCols; ++j) acc[j] = 0.f;
 
-  for (int k0 = 0; k0 < S; k0 += kBK) {
+  // only the kv tiles that hold a valid key for some row of the tile, by
+  // tc::'s rule: a key masked in a computed tile weighs exactly 0, and a
+  // row's fully masked tiles before its first valid key are wiped by the
+  // correction exp(-1e30 - m) = 0, so the result is the same to the bit
+  const int q_last = min(q0 + kBQ, S) - 1;
+  int t_hi = (S + kBK - 1) / kBK;
+  if (causal) t_hi = min(t_hi, q_last / kBK + 1);
+  const int t_lo =
+      (window > 0 && q0 - window + 1 > 0) ? (q0 - window + 1) / kBK : 0;
+  for (int k0 = t_lo * kBK; k0 < t_hi * kBK; k0 += kBK) {
     __syncthreads();  // Q staged / previous K, V tile consumed
     stage_rows<T, VEC>(kb, k_ss, k0, S, hd, sk, ld);
     stage_rows<T, VEC>(vb, v_ss, k0, S, hd, sv, ld);
@@ -619,11 +634,400 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace tc
 
+// The instance for bf16 at head_dim 256 (gemma2-9b), FlashAttention-3's
+// layout: three warpgroups per (b * h, 128-row query tile).  Warpgroup 0
+// is the producer: one thread issues every TMA load (Q once, then K and V
+// tiles of 64 keys into two stages each, each stage refilled when the 8
+// consumer warps have released it on its "empty" mbarrier), and the
+// warpgroup gives its registers up (setmaxnreg 24).  Warpgroups 1 and 2
+// are consumers with 240 registers a thread: each owns 64 query rows,
+// keeps its 64 x 256 f32 O in registers (128 a thread) and reads every K
+// and V stage, which the two share.  In turn j a consumer issues
+// S_j = Q K_j^T (wgmma m64n64k16, 16 steps over head_dim) and
+// O += P_{j-1} V_{j-1} (wgmma m64n256k16 with P in registers, 4 steps
+// over the keys), waits for S_j alone, releases K_j and runs the
+// softmax of S_j while its own P V and the other consumer's products
+// run; then it waits for P V, releases V_{j-1}, rescales O and packs P_j
+// to bf16.  Two named barriers hand the tensor cores from one consumer
+// to the other each turn (ping-pong), so one consumer's exp2 and tanh
+// run beside the other's products.  The softcap's tanh is
+// 1 - 2 / (2^(2x log2 e) + 1) on the special-function unit (absolute
+// error about 1e-7, against tanhf's branches).  Tiles are skipped as in
+// the 64-row instance, per 128-row tile; the per-element masks run only
+// on tiles that a mask or the ragged edge cuts.
+namespace ws {
+
+constexpr int HD = 256;
+constexpr int NC = HD / tc::kChunk;                // 4 column blocks of 64
+constexpr int kRows = 64;                          // query rows a consumer
+constexpr int kBQ = 2 * kRows;                     // query rows a block
+constexpr int kBK = tc::kBK;                       // keys per kv tile
+constexpr int kThreads = 3 * 128;                  // producer, 2 consumers
+constexpr int kTileBytes = NC * tc::kChunkBytes;   // 64 rows x 256: 32 KB
+constexpr int kConsumerWarps = 8;
+// mbarriers: Q, then per stage K full, V full, K empty, V empty
+constexpr int kBarQ = 0, kFullK = 1, kFullV = 3, kEmptyK = 5, kEmptyV = 7;
+constexpr int kNumBars = 9;
+constexpr int kTurnBar = 1;   // named barriers 1, 2: consumer 0's, 1's turn
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   tc::smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   tc::smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_u32(uint32_t* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// The descriptor of V read transposed across all four 64-wide column
+// blocks at once: the leading offset is the step to the next block.
+__device__ __forceinline__ uint64_t sw128_desc_lbo(uint32_t addr,
+                                                   uint32_t lbo) {
+  uint64_t d = (addr & 0x3FFFF) >> 4;
+  d |= static_cast<uint64_t>(lbo >> 4) << 16;   // leading byte offset
+  d |= static_cast<uint64_t>(1024 >> 4) << 32;  // stride byte offset
+  d |= static_cast<uint64_t>(1) << 62;          // 128-byte swizzle
+  return d;
+}
+
+#define RT_ACC128(d) \
+  RT_ACC32(d), RT_ACC32((d + 32)), RT_ACC32((d + 64)), RT_ACC32((d + 96))
+
+// d[64 x 256] += A[64 x 16] B[16 x 256], A in registers, B in shared
+// memory with its N dimension contiguous (transposed).
+__device__ __forceinline__ void wgmma_rs_n256_tb(float* d, const uint32_t* a,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}"
+      : RT_ACC128(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float tanh_ex2(float x) {
+  const float e = exp2f(fminf(x * 2.8853900817779268f, 64.f));
+  return 1.f - __fdividef(2.f, e + 1.f);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_pingpong_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      __nv_bfloat16* __restrict__ out, int H, int K, int S,
+                      float scale, float softcap, int causal, int window) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sK = sQ + 2 * kTileBytes;             // [2 stages]
+  uint8_t* sV = sK + 2 * kTileBytes;             // [2 stages]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sV + 2 * kTileBytes);
+
+  // the query tiles with the most kv tiles first (see tc::)
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kh = h / (H / K);
+  const int tid = threadIdx.x;
+  // the warpgroup, broadcast from lane 0 so the compiler sees it is
+  // uniform in the warp: wgmma in a branch it takes for divergent is
+  // serialized
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+
+  // the kv tiles that hold a valid key for some row of the 128
+  const int q_last = min(q0 + kBQ, S) - 1;
+  int t_hi = (S + kBK - 1) / kBK;
+  if (causal) t_hi = min(t_hi, q_last / kBK + 1);
+  const int t_lo =
+      (window > 0 && q0 - window + 1 > 0) ? (q0 - window + 1) / kBK : 0;
+  const int n = t_hi - t_lo;   // >= 1: row q0 keeps its own key
+
+  if (tid == 0) {
+    mbar_init(&bar[kBarQ], 1);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&bar[kFullK + i], 1);
+      mbar_init(&bar[kFullV + i], 1);
+      mbar_init(&bar[kEmptyK + i], kConsumerWarps);
+      mbar_init(&bar[kEmptyV + i], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // -- producer ----------------------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (tid == 0) {
+      tc::mbar_expect_tx(&bar[kBarQ], 2 * kTileBytes);
+      for (int half = 0; half < 2; ++half)
+        for (int c = 0; c < NC; ++c)
+          tc::tma_load(sQ + (half * NC + c) * tc::kChunkBytes, &tq,
+                       &bar[kBarQ], c * tc::kChunk, q0 + half * kRows, h, b);
+      for (int j = 0; j < n; ++j) {
+        const int st = j & 1;
+        const int row = (t_lo + j) * kBK;
+        // stage st last held tile j - 2: wait until both consumers let it go
+        const uint32_t freed = ((j >> 1) - 1) & 1;
+        if (j >= 2) tc::mbar_wait(&bar[kEmptyK + st], freed);
+        tc::mbar_expect_tx(&bar[kFullK + st], kTileBytes);
+        for (int c = 0; c < NC; ++c)
+          tc::tma_load(sK + st * kTileBytes + c * tc::kChunkBytes, &tk,
+                       &bar[kFullK + st], c * tc::kChunk, row, kh, b);
+        if (j >= 2) tc::mbar_wait(&bar[kEmptyV + st], freed);
+        tc::mbar_expect_tx(&bar[kFullV + st], kTileBytes);
+        for (int c = 0; c < NC; ++c)
+          tc::tma_load(sV + st * kTileBytes + c * tc::kChunkBytes, &tv,
+                       &bar[kFullV + st], c * tc::kChunk, row, kh, b);
+      }
+    }
+  } else {
+    // -- consumers ---------------------------------------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+    const int cw = wg - 1;
+    const int warp = (tid >> 5) & 3;
+    const int lane = tid & 31;
+    const int qw0 = q0 + cw * kRows;   // this consumer's first query row
+    // accumulator layout as in tc::: rows r0 and r0 + 8 of the 64, the
+    // columns 8 (i / 4) + cq + i % 2
+    const int r0 = warp * 16 + (lane >> 2);
+    const int cq = (lane & 3) * 2;
+    const int my_turn = kTurnBar + cw;
+    const int their_turn = kTurnBar + 1 - cw;
+    if (cw == 1) bar_arrive(kTurnBar);   // consumer 0 takes the first turn
+
+    // scale (and the softcap) folded with log2 e: the softmax runs in exp2
+    const float pre = softcap > 0.f ? scale / softcap : scale * tc::kLog2e;
+    const float post = softcap * tc::kLog2e;
+    float o[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) o[i] = 0.f;
+    float s[32];
+    uint32_t pa[16];
+    float m[2] = {rt::kNegInf, rt::kNegInf};   // running max, log2 domain
+    float l[2] = {0.f, 0.f};                   // this thread's part of the sum
+    float corr[2] = {1.f, 1.f};
+
+    const uint32_t qa = tc::smem_u32(sQ + cw * kTileBytes);
+    // S_j = Q K_j^T, one commit group
+    auto issue_s = [&](int j) {
+      const uint32_t ka = tc::smem_u32(sK + (j & 1) * kTileBytes);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      tc::fence_regs<32>(s);
+      tc::fence_regs<128>(o);
+      tc::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk / 4) * tc::kChunkBytes + (kk % 4) * 32;
+        tc::wgmma_ss(s, tc::sw128_desc(qa + off), tc::sw128_desc(ka + off),
+                     kk > 0);
+      }
+      tc::wg_commit();
+    };
+    // O += P_j V_j, one commit group
+    auto issue_pv = [&](int j) {
+      const uint32_t va = tc::smem_u32(sV + (j & 1) * kTileBytes);
+      tc::fence_regs<128>(o);
+      tc::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_n256_tb(o, &pa[4 * kk],
+                         sw128_desc_lbo(va + kk * 2048, tc::kChunkBytes));
+      tc::wg_commit();
+    };
+    // S_j (done) -> scale, softcap, masks, running max; s holds P_j in f32
+    auto softmax = [&](int j) {
+      tc::fence_regs<32>(s);
+      if (lane == 0) mbar_arrive(&bar[kEmptyK + (j & 1)]);
+      const int k0 = (t_lo + j) * kBK;
+      const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > qw0) ||
+                        (window > 0 && qw0 + kRows - 1 - k0 >= window);
+      if (softcap > 0.f) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = post * tanh_ex2(s[i] * pre);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] *= pre;
+      }
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int row = qw0 + r0 + 8 * ((i >> 1) & 1);
+          const int key = k0 + (i >> 2) * 8 + cq + (i & 1);
+          if (key >= S) {
+            s[i] = -INFINITY;   // past the ragged edge: zero weight
+          } else if ((causal && key > row) ||
+                     (window > 0 && row - key >= window)) {
+            s[i] = rt::kNegInf;
+          }
+        }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float mn = fmaxf(m[r], mx[r]);
+        corr[r] = exp2f(m[r] - mn);
+        m[r] = mn;
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = exp2f(s[i] - m[(i >> 1) & 1]);
+    };
+    // P V of tile j done: release V_j
+    auto pv_done = [&](int j) {
+      wg_wait<0>();
+      tc::fence_regs<128>(o);
+      fence_u32<16>(pa);
+      if (lane == 0) mbar_arrive(&bar[kEmptyV + (j & 1)]);
+    };
+    // O to the new running max; P_j in bf16 in the layout of wgmma's A
+    // operand (see tc::), its rounded values summed into l
+    auto rescale_pack = [&]() {
+      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+        for (int i = 0; i < 128; ++i) o[i] *= corr[(i >> 1) & 1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int qd = 0; qd < 4; ++qd) {
+          const int i = 8 * kk + 2 * qd;
+          pa[4 * kk + qd] = tc::pack_bf16(s[i], s[i + 1], &l[qd & 1]);
+        }
+    };
+
+    tc::mbar_wait(&bar[kBarQ], 0);
+    // turn 0: S_0 alone
+    tc::mbar_wait(&bar[kFullK], 0);
+    bar_sync(my_turn);
+    issue_s(0);
+    bar_arrive(their_turn);
+    wg_wait<0>();
+    softmax(0);
+    rescale_pack();
+    // turn j: S_j and P_{j-1} V_{j-1}; the softmax of S_j runs while P V
+    // and the other consumer's products do
+    for (int j = 1; j < n; ++j) {
+      tc::mbar_wait(&bar[kFullK + (j & 1)], (j >> 1) & 1);
+      tc::mbar_wait(&bar[kFullV + ((j - 1) & 1)], ((j - 1) >> 1) & 1);
+      bar_sync(my_turn);
+      issue_s(j);
+      issue_pv(j - 1);
+      bar_arrive(their_turn);
+      wg_wait<1>();   // S_j is done; P V may still run
+      softmax(j);
+      pv_done(j - 1);
+      rescale_pack();
+    }
+    // turn n: P_{n-1} V_{n-1} alone; consumer 1's last turn hands nothing
+    // on, so each named barrier sees as many arrivals as waits
+    tc::mbar_wait(&bar[kFullV + ((n - 1) & 1)], ((n - 1) >> 1) & 1);
+    bar_sync(my_turn);
+    issue_pv(n - 1);
+    if (cw == 0) bar_arrive(their_turn);
+    pv_done(n - 1);
+
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+    }
+    __nv_bfloat16* ob = out + static_cast<long long>(bh) * S * HD;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = qw0 + r0 + 8 * half;
+      if (row >= S) continue;
+      __nv_bfloat16* orow = ob + static_cast<long long>(row) * HD + cq;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int i = 32 * c + 4 * jj + 2 * half;
+          *reinterpret_cast<__nv_bfloat162*>(orow + c * tc::kChunk + 8 * jj) =
+              __floats2bfloat162_rn(o[i] * inv[half], o[i + 1] * inv[half]);
+        }
+    }
+  }
+}
+
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int H, int K, int S, const long long* st, float scale,
+           float softcap, int causal, int window, cudaStream_t stream) {
+  tc::EncodeTiledFn fn = tc::encode_fn();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tq, tk, tv;
+  if (!tc::encode(fn, &tq, q, B, H, S, HD, st) ||
+      !tc::encode(fn, &tk, k, B, K, S, HD, st + 3) ||
+      !tc::encode(fn, &tv, v, B, K, S, HD, st + 6))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // Q (128 rows), two stages of K and V, the barriers, room to align
+  const size_t smem = 6 * kTileBytes + kNumBars * 8 + 1024;
+  static rt::SmemOptIn opted;
+  cudaError_t err = rt::opt_in_smem(
+      opted, reinterpret_cast<const void*>(flash_pingpong_kernel), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  flash_pingpong_kernel<<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), H, K, S, scale, softcap,
+      causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace ws
+
 // dtype: 0 = float32, 1 = bfloat16.  vec: 1 when every row start is
-// 16-byte aligned (16-byte loads), else 0.  instance: 1 = the tensor-core
-// kernel (bf16, head_dim 64 or 128, base and strides 16-byte aligned, as
-// TMA needs), 0 = the SIMT kernel.  strides (elements): q_b, q_h, q_s,
-// k_b, k_h, k_s, v_b, v_h, v_s.  The last dim of q, k and v is
+// 16-byte aligned (16-byte loads), else 0.  instance: 1 = the 64-row
+// tensor-core kernel (bf16, head_dim 64 or 128), 2 = the ping-pong
+// kernel (bf16, head_dim 256), both with base and strides 16-byte
+// aligned, as TMA needs; 0 = the SIMT kernel.  strides (elements): q_b,
+// q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s.  The last dim of q, k and v is
 // contiguous; out is a contiguous [B, H, S, hd].
 // Returns the launch's CUDA error code (0 = launched).
 extern "C" int flash_attention_launch(
@@ -641,6 +1045,12 @@ extern "C" int flash_attention_launch(
       return tc::launch<128>(q, k, v, out, B, H, K, S, strides, scale,
                              softcap, causal, window, st);
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (instance == 2) {
+    if (dtype != 1 || hd != ws::HD)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return ws::launch(q, k, v, out, B, H, K, S, strides, scale, softcap,
+                      causal, window, st);
   }
   return simt::dispatch(q, k, v, out, B, H, K, S, hd, strides, scale,
                         softcap, causal, window, dtype, vec, st);

@@ -35,7 +35,8 @@ from repro_torch.models import build_model
 STEPS = 8     # decode steps per request, as in chip_smoke.py
 TOP = 12      # kernel names printed
 #: name fragments of the port's hand-written kernels (csrc/*.cu)
-PORT_KERNELS = ("flash_wgmma_kernel", "flash_attention_kernel",
+PORT_KERNELS = ("flash_wgmma_kernel", "flash_pingpong_kernel",
+                "flash_attention_kernel",
                 "decode_split_kernel", "decode_combine_kernel",
                 "wkv6", "rglru_scan")
 

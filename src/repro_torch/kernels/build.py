@@ -217,8 +217,13 @@ def launch(wrapper, device: torch.device, *args) -> None:
         msg = getattr(lib, f"{name}_error_string")(code)
         raise KernelError(f"{name} launch failed: CUDA error {code} "
                           f"({(msg or b'').decode()})")
+    count(wrapper, "launches")
+
+
+def count(wrapper, counter: str) -> None:
+    """Add one to ``wrapper``'s integer attribute ``counter``."""
     with _COUNT_LOCK:            # executor threads launch concurrently
-        wrapper.launches += 1
+        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
 def strides_arg(values: List[int]):

@@ -7,12 +7,18 @@ device: on the CPU it runs :func:`flash_attention_plain`; on the card it
 launches the hand-written CUDA kernel ``csrc/flash_attention.cu`` or
 raises :class:`~repro_torch.kernels.build.KernelError`.
 
-The C entry point holds two hand-written instances, picked by
+The C entry point holds three hand-written instances, picked by
 :func:`instance_for` from the dtype and head_dim, never by catching a
-failure: ``"wgmma"`` (bf16 at head_dim 64 or 128: TMA loads, tensor-core
-products, kv tiles that the masks empty skipped) and ``"simt"`` (f32 and
-every other head_dim: scalar f32 FMAs).  ``flash_attention.last_instance``
-names the instance of the last launch.
+failure: ``"wgmma"`` (bf16 at head_dim 64 or 128: one warpgroup per
+64-row query tile, TMA loads, tensor-core products, kv tiles that the
+masks empty skipped), ``"pingpong"`` (bf16 at head_dim 256: a producer
+warp and two consumer warpgroups per 128-row query tile, taking turns at
+the tensor cores) and ``"simt"`` (f32, and bf16 at every other head_dim:
+scalar f32 FMAs, empty kv tiles skipped).  ``flash_attention.last_instance``
+names the instance of the last launch; ``flash_attention.windowed_launches``
+counts the launches with a window (gemma2's local layers) apart, so that
+``chip_smoke.py``'s kernels line can give the local and the global rows
+their own launch counts.
 
 The least time of the work on an H100 is the larger of its operations
 (about 2 * B * H * S^2 * hd for the causal products, over 989 TFLOP/s)
@@ -35,10 +41,10 @@ from repro_torch.kernels import build, ref
 flash_attention_plain = ref.attention_ref
 
 #: the instances behind the C entry point, by their ``instance`` code
-INSTANCES = ("simt", "wgmma")
-#: query rows per block of the tensor-core instance (``kBQ`` in its
-#: namespace of the ``.cu`` file)
-WGMMA_TILE = 64
+INSTANCES = ("simt", "wgmma", "pingpong")
+#: query rows per block of the tensor-core instances (``kBQ`` in their
+#: namespaces ``tc`` and ``ws`` of the ``.cu`` file)
+Q_TILE = {"wgmma": 64, "pingpong": 128}
 
 
 def _aligned(t: torch.Tensor, vec: int) -> bool:
@@ -50,13 +56,16 @@ def instance_for(q: torch.Tensor) -> str:
     """The kernel instance that serves ``q``'s dtype and head_dim."""
     if q.dtype == torch.bfloat16 and q.shape[-1] in (64, 128):
         return "wgmma"
+    if q.dtype == torch.bfloat16 and q.shape[-1] == 256:
+        return "pingpong"
     return "simt"
 
 
 def check_inputs(q, k, v):
     """What the CUDA kernel takes; raises KernelError on anything else.
-    Returns (instance, aligned): the instance that serves the inputs and
-    whether every row start of q, k and v is 16-byte aligned."""
+    Returns (instance, aligned): the instance that serves the inputs
+    (``instance_for``'s) and whether every row start of q, k and v is
+    16-byte aligned."""
     err = build.KernelError
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise err(f"flash_attention: bad ranks/shapes q{tuple(q.shape)} "
@@ -78,13 +87,13 @@ def check_inputs(q, k, v):
     instance = instance_for(q)
     aligned = all(_aligned(t, 16 // t.element_size()) for t in (q, k, v))
     # grid (q tiles, B*H) for the SIMT instance, (B*H, q tiles) for the
-    # tensor-core one; y is limited to 65535
-    grid_y = B * H if instance == "simt" else -(-S // WGMMA_TILE)
+    # tensor-core ones; y is limited to 65535
+    grid_y = B * H if instance == "simt" else -(-S // Q_TILE[instance])
     if grid_y > 65535:
         raise err(f"flash_attention: the {instance} instance's grid y "
                   f"({grid_y}) exceeds its limit of 65535")
-    if instance == "wgmma" and not aligned:
-        raise err("flash_attention: the tensor-core instance reads q, k "
+    if instance != "simt" and not aligned:
+        raise err(f"flash_attention: the {instance} instance reads q, k "
                   "and v through TMA, which needs 16-byte-aligned bases "
                   "and strides in multiples of 16 bytes")
     return instance, aligned
@@ -115,8 +124,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                  int(window), build.DTYPE_CODE[q.dtype], int(aligned),
                  INSTANCES.index(instance))
     flash_attention.last_instance = instance
+    if window > 0:
+        build.count(flash_attention, "windowed_launches")
     return out
 
 
 flash_attention.launches = 0
+flash_attention.windowed_launches = 0
 flash_attention.last_instance = None

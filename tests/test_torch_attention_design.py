@@ -12,11 +12,13 @@ splits of the cache merge, where P is rounded) is tested here:
   slot skipped when the sequence has a valid slot anywhere; per-split
   (m, l, acc) partials merged as the combine kernel does.  f32, atol and
   rtol 1e-5 (both sides compute in f32, in different orders).
-* flash (``csrc/flash_attention.cu``, the tensor-core instance): 64-row
-  query tiles against 64-key tiles, the tiles that the causal mask or the
-  window empty for the whole query tile skipped, P rounded to bf16 before
-  P V and the row sum taken of the rounded values.  bf16 inputs, held at
-  ``tol("bfloat16")`` of ``tests/test_torch_kernels.py`` (2e-2).
+* flash (``csrc/flash_attention.cu``, the tensor-core instances): query
+  tiles of 64 rows (``wgmma``) or 128 (``pingpong``, head_dim 256: two
+  consumers of 64 rows that share each kv tile) against 64-key tiles,
+  the tiles that the causal mask or the window empty for the whole query
+  tile skipped, P rounded to bf16 before P V and the row sum taken of the
+  rounded values.  bf16 inputs, held at ``tol("bfloat16")`` of
+  ``tests/test_torch_kernels.py`` (2e-2).
 """
 import math
 
@@ -30,6 +32,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as jops, ref as jref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     TILE, split_plan)
+from repro_torch.kernels.flash_attention import Q_TILE  # noqa: E402
 
 jref_attention = jax.jit(jref.attention_ref, static_argnames=(
     "causal", "window", "softcap", "scale"))
@@ -37,7 +40,7 @@ jref_decode = jax.jit(jref.decode_attention_ref, static_argnames=(
     "window", "softcap", "scale"))
 
 NEG = -1e30
-BQ = BK = 64          # the tensor-core flash instance's tiles
+BK = 64               # keys per kv tile of the tensor-core flash instances
 
 
 def _np(shape, seed, scale=0.3):
@@ -162,10 +165,12 @@ def test_split_decode_matches_pallas_and_oracle(case):
 
 # -- flash: tensor-core tiles ------------------------------------------------
 
-def tiled_flash(q, k, v, *, causal=True, window=0, softcap=0.0):
-    """The tensor-core instance in plain torch: f32 scores of bf16
-    inputs, an online softmax over 64-key tiles, P rounded to bf16.
-    Returns (out, tiles computed, tiles without skipping)."""
+def tiled_flash(q, k, v, *, causal=True, window=0, softcap=0.0, bq=64):
+    """A tensor-core instance in plain torch: f32 scores of bf16 inputs,
+    an online softmax over 64-key tiles for query tiles of ``bq`` rows
+    (64: ``wgmma``; 128: ``pingpong``, whose two consumers compute every
+    kv tile of their 128-row tile), P rounded to bf16.  Returns (out,
+    (query tile, kv tile) pairs computed, pairs without skipping)."""
     B, H, S, hd = q.shape
     K = k.shape[1]
     G = H // K
@@ -173,8 +178,8 @@ def tiled_flash(q, k, v, *, causal=True, window=0, softcap=0.0):
     nk = -(-S // BK)
     out = torch.empty((B, H, S, hd), dtype=q.dtype)
     computed = total = 0
-    for q0 in range(0, S, BQ):
-        q1 = min(S, q0 + BQ)
+    for q0 in range(0, S, bq):
+        q1 = min(S, q0 + bq)
         t_hi = min(nk, (q1 - 1) // BK + 1) if causal else nk
         t_lo = (q0 - window + 1) // BK if window > 0 and \
             q0 - window + 1 > 0 else 0
@@ -217,17 +222,21 @@ FLASH_CASES = {
     "window_ragged_150": (1, 2, 2, 150, 32, True, 40, 0.0, None),
     "softcap": (1, 2, 1, 128, 128, True, 0, 30.0, 64),
     "non_causal_window_ragged": (1, 2, 1, 100, 64, False, 30, 0.0, None),
+    # head_dim 256 (gemma2-9b, the ping-pong instance), scaled down
+    "hd256_window_softcap_ragged": (1, 4, 2, 200, 256, True, 40, 50.0,
+                                    None),
+    "hd256_global_softcap": (1, 2, 1, 256, 256, True, 0, 50.0, 128),
 }
 
 
-@pytest.mark.parametrize("case", sorted(FLASH_CASES))
-def test_tiled_flash_matches_pallas_and_oracle(case):
+def _check_tiled_flash(case, bq):
     B, H, K, S, hd, causal, window, softcap, blocks = FLASH_CASES[case]
     arrays = [_np((B, n, S, hd), 30 + i) for i, n in enumerate((H, K, K))]
     tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in arrays)
     jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in arrays)
     got, computed, total = tiled_flash(tq, tk, tv, causal=causal,
-                                       window=window, softcap=softcap)
+                                       window=window, softcap=softcap,
+                                       bq=bq)
     assert got.dtype == torch.bfloat16
     tol = 2e-2
     oracle = jref_attention(jq, jk, jv, causal=causal, window=window,
@@ -240,9 +249,45 @@ def test_tiled_flash_matches_pallas_and_oracle(case):
                                     interpret=True)
         np.testing.assert_allclose(_f32(got), _f32(want), atol=tol,
                                    rtol=tol)
-    # a causal mask leaves whole tiles out
-    if causal:
+    # a causal mask leaves whole tiles out of every query tile but one
+    if causal and S > bq:
         assert computed < total
     if S == 256 and causal and not window:
-        # the served shape's count: 10 of the 16 (q tile, kv tile) pairs
-        assert computed * 16 == total * 10
+        # yi-9b's served shape: 10 of the 16 (q tile, kv tile) pairs at
+        # 64 rows; 6 of 8 at 128
+        want = {64: (10, 16), 128: (6, 8)}[bq]
+        assert (computed, total) == (want[0] * B * H, want[1] * B * H)
+    return got
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_tiled_flash_matches_pallas_and_oracle(case):
+    """64-row query tiles: the ``wgmma`` instance."""
+    _check_tiled_flash(case, Q_TILE["wgmma"])
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_tiled_flash_128_rows_matches_pallas_and_oracle(case):
+    """128-row query tiles: the ``pingpong`` instance, whose two
+    consumers of 64 rows run every kv tile of their 128-row tile (a tile
+    that the masks empty for one consumer's rows weighs exactly 0 there,
+    or is wiped by the correction of its first valid key)."""
+    _check_tiled_flash(case, Q_TILE["pingpong"])
+
+
+@pytest.mark.parametrize("bq,computed", [(64, 108), (128, 60)])
+def test_tiled_flash_tiles_at_a_scaled_local_layer(bq, computed):
+    """gemma2-9b's local layer (S 8192, window 4096) scaled down by 8 to
+    S 1024, window 512: 108 of the 256 (query tile, kv tile) pairs at 64
+    rows; 60 of 128 at 128 rows, i.e. 120 products of 64 x 64 against
+    108 (at full size 6336 against 6240: 1.5% more work for two
+    consumers that share each kv tile)."""
+    S, W, hd = 1024, 512, 32
+    arrays = [_np((1, 1, S, hd), 40 + i) for i in range(3)]
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in arrays)
+    got, n, total = tiled_flash(tq, tk, tv, window=W, softcap=50.0, bq=bq)
+    assert (n, total) == (computed, (S // bq) * (S // BK))
+    oracle = jref_attention(*(jnp.asarray(a).astype(jnp.bfloat16)
+                              for a in arrays), window=W, softcap=50.0)
+    np.testing.assert_allclose(_f32(got), _f32(oracle), atol=2e-2,
+                               rtol=2e-2)

@@ -139,18 +139,98 @@ def test_decode_kernel_empty_cache_is_mean_of_v(dev):
 
 
 @pytest.mark.parametrize("hd,instance", [(64, "wgmma"), (128, "wgmma"),
-                                         (256, "simt")])
+                                         (256, "pingpong")])
 def test_flash_bf16_instance_by_head_dim(dev, hd, instance):
+    """bf16 picks its instance by head_dim: the 64-row tensor-core one at
+    64 and 128, the ping-pong one at 256 (since it was written; the SIMT
+    one served 256 before), each without and with a window and a
+    softcap."""
     B, H, K, S = 2, 4, 2, 192
     q = _rand((B, H, S, hd), torch.bfloat16, dev, 20)
     k = _rand((B, K, S, hd), torch.bfloat16, dev, 21)
     v = _rand((B, K, S, hd), torch.bfloat16, dev, 22)
     for window in (0, 70):
-        got = kops.flash_attention(q, k, v, window=window)
+        for softcap in (0.0, 50.0):
+            got = kops.flash_attention(q, k, v, window=window,
+                                       softcap=softcap)
+            torch.cuda.synchronize()
+            assert kops.flash_attention.last_instance == instance
+            _close(got, flash_attention_plain(q, k, v, window=window,
+                                              softcap=softcap),
+                   torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,H,K,S,causal,window", [
+    (1, 2, 1, 1, True, 0),          # one row
+    (2, 4, 2, 200, True, 0),        # ragged: the last tile half empty
+    (1, 4, 4, 330, True, 40),       # window inside one 128-row tile
+    (1, 2, 2, 300, False, 0),       # every key of every row
+    (1, 2, 1, 260, False, 70),      # window, keys past the query too
+])
+def test_flash_pingpong_shapes(dev, B, H, K, S, causal, window):
+    """The ping-pong instance at head_dim 256 on ragged S, MHA and GQA,
+    causal or not, with and without a window and the softcap."""
+    hd = 256
+    q = _rand((B, H, S, hd), torch.bfloat16, dev, 60)
+    k = _rand((B, K, S, hd), torch.bfloat16, dev, 61)
+    v = _rand((B, K, S, hd), torch.bfloat16, dev, 62)
+    for softcap in (0.0, 50.0):
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        n0 = kops.flash_attention.launches
+        got = kops.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
-        assert kops.flash_attention.last_instance == instance
-        _close(got, flash_attention_plain(q, k, v, window=window),
-               torch.bfloat16)
+        assert kops.flash_attention.launches == n0 + 1
+        assert kops.flash_attention.last_instance == "pingpong"
+        _close(got, flash_attention_plain(q, k, v, **kw), torch.bfloat16)
+
+
+def test_flash_f32_at_head_dim_256_runs_simt(dev):
+    """f32 at head_dim 256 stays on the SIMT instance, exact to 1e-4."""
+    B, H, K, S, hd = 1, 4, 2, 150, 256
+    q = _rand((B, H, S, hd), torch.float32, dev, 63)
+    k = _rand((B, K, S, hd), torch.float32, dev, 64)
+    v = _rand((B, K, S, hd), torch.float32, dev, 65)
+    kw = dict(window=40, softcap=50.0)
+    got = kops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert kops.flash_attention.last_instance == "simt"
+    _close(got, flash_attention_plain(q, k, v, **kw), torch.float32)
+
+
+def test_flash_pingpong_refuses_misaligned_views(dev):
+    """The ping-pong instance reads through TMA: a bf16 head_dim 256 view
+    that starts one element in, or whose row stride is not a multiple of
+    16 bytes, raises KernelError; it is never sent to the SIMT
+    instance."""
+    B, H, S, hd = 1, 2, 64, 256
+    flat = torch.zeros(B * H * S * hd + 1, dtype=torch.bfloat16, device=dev)
+    shifted = flat[1:].view(B, H, S, hd)
+    good = _rand((B, H, S, hd), torch.bfloat16, dev, 66)
+    n0 = kops.flash_attention.launches
+    with pytest.raises(KernelError, match="pingpong"):
+        kops.flash_attention(shifted, good, good)
+    wide = _rand((B, H, S, hd + 4), torch.bfloat16, dev, 67)[..., :hd]
+    with pytest.raises(KernelError, match="pingpong"):   # 520-byte rows
+        kops.flash_attention(good, good, wide)
+    assert kops.flash_attention.launches == n0
+
+
+def test_flash_simt_skips_tiles_the_window_empties(dev):
+    """The SIMT instance computes only the kv tiles that hold a valid key
+    for some row of its 32-row tile: with a window of 40 at S = 1000 most
+    tiles of every query tile are empty.  A skipped tile would have
+    weighed exactly 0, so f32 stays within 1e-5 of the plain version."""
+    B, H, K, S, hd = 2, 4, 2, 1000, 64
+    q = _rand((B, H, S, hd), torch.float32, dev, 68)
+    k = _rand((B, K, S, hd), torch.float32, dev, 69)
+    v = _rand((B, K, S, hd), torch.float32, dev, 70)
+    for kw in (dict(window=40), dict(window=40, softcap=30.0),
+               dict(window=100, causal=False)):
+        got = kops.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert kops.flash_attention.last_instance == "simt"
+        torch.testing.assert_close(
+            got, flash_attention_plain(q, k, v, **kw), atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("dtype,instance", [(torch.bfloat16, "wgmma"),
@@ -865,18 +945,19 @@ def test_warm_deployment_pays_the_allocator_growth_before_traffic(dev):
 
 # -- gemma2-9b's shapes, the int8 KV cache, the vlm and the engine ----------
 
-def test_flash_gemma2_prefill_shape(dev):
-    """gemma2-9b's local layer on an 8192-token prompt ([B, S, H, hd]
-    views, H=16, K=8, hd=256, window 4096, softcap 50, scale 1/16): the
-    SIMT instance (the tensor-core one takes head_dim 64 and 128)."""
+@pytest.mark.parametrize("window", [4096, 0])
+def test_flash_gemma2_prefill_shape(dev, window):
+    """gemma2-9b's local (window 4096) and global layers on an 8192-token
+    prompt ([B, S, H, hd] views, H=16, K=8, hd=256, softcap 50, scale
+    1/16): the ping-pong instance (the SIMT one served it before)."""
     B, S, H, K, hd = 1, 8192, 16, 8, 256
     q = _rand((B, S, H, hd), torch.bfloat16, dev, 40).transpose(1, 2)
     k = _rand((B, S, K, hd), torch.bfloat16, dev, 41).transpose(1, 2)
     v = _rand((B, S, K, hd), torch.bfloat16, dev, 42).transpose(1, 2)
-    kw = dict(causal=True, window=4096, softcap=50.0, scale=1.0 / 16)
+    kw = dict(causal=True, window=window, softcap=50.0, scale=1.0 / 16)
     got = kops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert kops.flash_attention.last_instance == "simt"
+    assert kops.flash_attention.last_instance == "pingpong"
     _close(got, flash_attention_plain(q, k, v, **kw), torch.bfloat16)
 
 

@@ -20,7 +20,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain)
 from repro_torch.kernels.build import KernelError  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    check_inputs as flash_check_inputs, flash_attention_plain)
+    check_inputs as flash_check_inputs, flash_attention_plain,
+    instance_for as flash_instance_for)
 
 # the reference oracles, jitted: one compile per shape instead of one per
 # primitive (same math)
@@ -259,6 +260,7 @@ def test_tile_rules_state_the_cuda_constraints():
 
 @pytest.mark.parametrize("dtype,hd,instance,ok", [
     (torch.bfloat16, 128, "wgmma", True),     # B*H on grid x
+    (torch.bfloat16, 256, "pingpong", True),  # B*H on grid x
     (torch.bfloat16, 96, "simt", False),      # B*H on grid y
     (torch.float32, 128, "simt", False)])
 def test_flash_grid_limit_follows_the_instance(dtype, hd, instance, ok):
@@ -276,3 +278,44 @@ def test_flash_grid_limit_follows_the_instance(dtype, hd, instance, ok):
             flash_check_inputs(q, k, k)
     small = q[:, :64]
     assert flash_check_inputs(small, k, k) == (instance, True)
+
+
+@pytest.mark.parametrize("dtype,hd,instance", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "pingpong"), (torch.bfloat16, 96, "simt"),
+    (torch.bfloat16, 192, "simt"), (torch.float32, 256, "simt"),
+    (torch.float32, 128, "simt")])
+def test_flash_instance_by_dtype_and_head_dim(dtype, hd, instance):
+    """The instance is a function of dtype and head_dim alone: bf16 at 64
+    and 128 on the 64-row tensor-core instance, at 256 on the ping-pong
+    one, every f32 and every other bf16 head_dim on the SIMT one."""
+    q = torch.zeros((1, 2, 8, hd), dtype=dtype)
+    assert flash_instance_for(q) == instance
+    assert flash_check_inputs(q, q[:, :1], q[:, :1]) == (instance, True)
+
+
+@pytest.mark.parametrize("view", ["shifted", "wide_rows"])
+@pytest.mark.parametrize("dtype,hd,instance", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "pingpong"), (torch.float32, 256, "simt")])
+def test_flash_misaligned_views_by_instance(dtype, hd, instance, view):
+    """The tensor-core instances read q, k and v through TMA: a view that
+    starts one element in, or whose rows are 8 bytes apart from a
+    multiple of 16, is refused with a message naming the instance (never
+    sent to the SIMT instance).  The SIMT instance takes the same view
+    with element loads (``aligned`` False)."""
+    B, H, S = 1, 2, 16
+    if view == "shifted":
+        bad = torch.zeros(B * H * S * hd + 1, dtype=dtype)[1:].view(
+            B, H, S, hd)
+    else:
+        bad = torch.zeros((B, H, S, hd + 8 // dtype.itemsize),
+                          dtype=dtype)[..., :hd]
+    good = torch.zeros((B, H, S, hd), dtype=dtype)
+    if instance == "simt":
+        assert flash_check_inputs(bad, good, good) == ("simt", False)
+    else:
+        with pytest.raises(KernelError, match=f"the {instance} instance "
+                           "reads q, k and v through TMA"):
+            flash_check_inputs(bad, good, good)
+    assert flash_check_inputs(good, good, good) == (instance, True)
