@@ -31,7 +31,9 @@ ignored):
    recurrences ran their split instances at their f32 path shapes (wkv6:
    tiles of 4 x 4 of S, 16 lanes a column group, cp.async staging;
    rglru_scan: clusters of 2 blocks of 4 warps along T, staged), and
-   prints decode's split count.
+   prints decode's split count.  Both attention kernels also at arctic-
+   480b's group of 7 (H=56, K=8, hd=128; the same shapes otherwise), in
+   rows of their own.
 4. Paths: gemma2-9b (42 layers), yi-9b (48), rwkv6-1.6b (24) and
    recurrentgemma-2b (26) at full width and depth in bf16 with
    ``use_kernels=True``, random
@@ -123,9 +125,23 @@ ignored):
    media's effect and the kernel path within rel 0.05 of the plain path;
    the paper's video pipeline on it (6 frames against the 1 s budget,
    one SLO-controller tick); f32 tokens at 5 layers; peak memory.
-9. The last line: ``{"ok": true, "device": {...}}``; before it a
-   ``kernels`` JSON line (with gemma2-9b's attention rows) and the
-   nvidia-smi line.  Each phase prints its seconds.
+9. Families II (``FAMILIES2``): full-width arctic-480b (depth cut to 2
+   layers) and llama4-maverick-400b-a17b (one block: a dense layer, then
+   a MoE layer with its shared expert) through phase 4's checks
+   (``phase_path``), the kernel-vs-plain logits held on the token rows
+   whose routes the two paths share (``moe_kernel_vs_plain``); the
+   served MoE layer against the masked combine on the card at the
+   prefill's and a decode step's token counts, with times and the expert
+   bytes each reads (``moe_layer_check``, bf16 and f32); the int8
+   experts through the cascade (``phase_expert_quant``); f32 tokens at 1
+   layer (arctic) and 2 (llama4).  whisper-medium at full depth (24 + 24
+   layers): the cascade over zero frames launching no kernel,
+   ``ServingEngine.generate`` with seeded frames, the frames' effect on
+   the logits, the cross K/V passed on uncopied (``phase_frames``), f32
+   tokens at full depth.
+10. The last line: ``{"ok": true, "device": {...}}``; before it a
+   ``kernels`` JSON line (with gemma2-9b's and arctic-480b's attention
+   rows) and the nvidia-smi line.  Each phase prints its seconds.
 
 Exits non-zero with no result when CUDA is unavailable or the port's
 package is missing.
@@ -150,10 +166,12 @@ BF16_REL, F32_REL = 0.05, 1e-4       # the reference's kernel bars
 SPIN_CYCLES = 500_000                # ~0.3 ms at the H100's clocks
 KERNELS = ("decode_attention", "flash_attention", "wkv6", "rglru_scan")
 #: the kernels JSON line's rows: each kernel at its served path's shapes,
-#: and the attention kernels again at gemma2-9b's
+#: and the attention kernels again at gemma2-9b's and arctic-480b's
 KERNEL_ROWS = ("decode_attention", "flash_attention",
                "decode_attention[gemma2-9b]", "flash_attention[gemma2-9b]",
-               "flash_attention[gemma2-9b global]", "wkv6", "rglru_scan")
+               "flash_attention[gemma2-9b global]", "wkv6", "rglru_scan",
+               "decode_attention[arctic-480b]",
+               "flash_attention[arctic-480b]")
 T_START = time.perf_counter()
 #: per path: arch, depth of the f32 token check, depth at which the bf16
 #: logits of the kernel path are held to the 0.05 bar (None: full).
@@ -277,16 +295,20 @@ def host_ms(torch, fn, iters=30):
     return (t1 - t0) / iters * 1e3
 
 
-def phase_kernels(torch, dev, flush):
+def _attention_rows(torch, dev, g, flush, suffix, H, K):
+    """Decode attention over a 1024-slot ring with -1 slots and flash
+    attention at [4, H, 256, 128] (K kv heads, causal) against their plain
+    versions in f32 and bf16; the bf16 runs are timed and give the rows
+    ``decode_attention<suffix>`` and ``flash_attention<suffix>``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.decode_attention import decode_attention_plain
     from repro_torch.kernels.flash_attention import flash_attention_plain
 
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    B, H, K, hd = 4, 32, 4, 128
+    B, hd = 4, 128
     results = {}
+    where = f"H {H}, K {K} (group {H // K})"
 
     # -- decode attention over a [B, W, K, hd] ring cache ------------------
     W = 1024
@@ -308,12 +330,12 @@ def phase_kernels(torch, dev, flush):
         err = rel_err(got, want)
         abs_err = float((got.float() - want.float()).abs().max())
         check(bool(torch.isfinite(got).all()) and err < bar,
-              f"decode_attention {dtype}: rel err {err} < {bar} "
+              f"decode_attention {dtype} at {where}: rel err {err} < {bar} "
               f"(max abs {abs_err})")
         splits = kops.decode_attention.last_splits
-        print(f"  decode_attention {dtype}: {splits} splits of the "
-              f"{W}-slot ring per (b, kv head), {B * K * splits} blocks",
-              flush=True)
+        print(f"  decode_attention {dtype} at {where}: {splits} splits of "
+              f"the {W}-slot ring per (b, kv head), {B * K * splits} "
+              f"blocks", flush=True)
         if dtype != torch.bfloat16:
             continue
         valid = int(((kpos >= 0) & (kpos <= qpos[:, None])).sum())
@@ -324,8 +346,8 @@ def phase_kernels(torch, dev, flush):
         flops = 2 * 2 * valid * H * hd          # q.k and p.v per head
         qs = q[:, :, None]                                # [B,H,1,hd]
         mask = ((kpos >= 0) & (kpos <= qpos[:, None]))[:, None, None, :]
-        results["decode_attention"] = {
-            "name": "decode_attention", "route": "cuda",
+        results["decode_attention" + suffix] = {
+            "name": "decode_attention" + suffix, "route": "cuda",
             "source": "src/repro_torch/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:88",
             "max_abs_err": abs_err,
@@ -350,20 +372,20 @@ def phase_kernels(torch, dev, flush):
         err = rel_err(got, want)
         abs_err = float((got.float() - want.float()).abs().max())
         check(bool(torch.isfinite(got).all()) and err < bar,
-              f"flash_attention {dtype}: rel err {err} < {bar} "
+              f"flash_attention {dtype} at {where}: rel err {err} < {bar} "
               f"(max abs {abs_err})")
         instance = kops.flash_attention.last_instance
         want_instance = "wgmma" if dtype == torch.bfloat16 else "simt"
         check(instance == want_instance, f"flash_attention {dtype} at "
-              f"yi-9b's prefill shape ran the {instance} instance")
+              f"[{B}, {H}, {S}, {hd}], {where}, ran the {instance} instance")
         if dtype != torch.bfloat16:
             continue
         el = q.element_size()
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * el
         pairs = B * H * S * (S + 1) // 2        # causal (q, k) pairs
         flops = 2 * 2 * pairs * hd              # q.k and p.v
-        results["flash_attention"] = {
-            "name": "flash_attention", "route": "cuda",
+        results["flash_attention" + suffix] = {
+            "name": "flash_attention" + suffix, "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:95",
             "max_abs_err": abs_err,
@@ -376,10 +398,22 @@ def phase_kernels(torch, dev, flush):
         }
         # the instance of the timed launches (the choice depends only on
         # dtype and head_dim, so the last one stands for all)
-        results["flash_attention"]["instance"] = \
+        results["flash_attention" + suffix]["instance"] = \
             kops.flash_attention.last_instance
+    return results
+
+
+def phase_kernels(torch, dev, flush):
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    # yi-9b's shapes (H 32, K 4: group 4) give the base rows
+    results = _attention_rows(torch, dev, g, flush, "", 32, 4)
     results.update(phase_gemma2_kernels(torch, dev, g, flush))
     results.update(phase_recurrent_kernels(torch, dev, g, flush))
+    # arctic-480b's (H 56, K 8: group 7, not a power of two), drawn from
+    # a generator of their own so the rows above keep their inputs
+    g7 = torch.Generator(device=dev).manual_seed(SEED + 7)
+    results.update(_attention_rows(torch, dev, g7, flush, "[arctic-480b]",
+                                   56, 8))
     for r in results.values():
         lib = r["library_ms"]
         lib_text = r.get("library_note") or (
@@ -728,34 +762,39 @@ def serve(torch, dev, cfg, calls=3, params=None):
 
 def expected_launches(cfg, prefills, steps):
     """Launches of each kernel over ``prefills`` dispatches of the
-    cascade: the dense path runs flash attention per layer and prefill
-    and decode attention per layer and step; rwkv6 runs wkv6 per layer
-    and prefill; recurrentgemma runs rglru_scan per recurrent layer and
-    prefill (its local attention stays plain, as in the reference)."""
+    cascade: the dense and moe paths run flash attention per layer and
+    prefill and decode attention per layer and step; rwkv6 runs wkv6 per
+    layer and prefill; recurrentgemma runs rglru_scan per recurrent layer
+    and prefill (its local attention stays plain, as in the reference);
+    whisper runs none (its attention stays plain, as in the
+    reference)."""
     from repro_torch.models import rglru
 
     want = dict.fromkeys(KERNELS, 0)
     L = cfg.num_layers
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         want["flash_attention"] = L * prefills
         want["decode_attention"] = L * steps * prefills
     elif cfg.family == "ssm":
         want["wkv6"] = L * prefills
-    else:
+    elif cfg.family == "hybrid":
         want["rglru_scan"] = rglru.layer_types(cfg).count("rec") * prefills
     return want
 
 
-def phase_path(torch, dev, arch, f32_layers, logits_layers, keep=False):
-    """Serve ``arch`` at full width and depth in bf16 through the kernels
-    and check it; then at f32 and ``f32_layers`` layers check the kernel
-    path's greedy tokens against the plain path's.  The kernel path's
-    logits are held to the plain path's within 0.05 at full depth, or at
-    ``logits_layers`` where that is set, and then at full depth to the
-    plain path's own gap under a last-bit change.  Returns the bf16 run's
-    launches, its flash launches with a window (the local layers) and,
-    with ``keep``, (its model, params, first-call latency in s) for the
-    serving phase, else None."""
+def phase_path(torch, dev, arch, f32_layers, logits_layers, keep=False,
+               layers=None):
+    """Serve ``arch`` at full width and depth (or ``layers`` deep, a cut
+    that is printed) in bf16 through the kernels and check it; then at f32
+    and ``f32_layers`` layers check the kernel path's greedy tokens
+    against the plain path's.  The kernel path's logits are held to the
+    plain path's within 0.05 at full depth, or at ``logits_layers`` where
+    that is set, and then at full depth to the plain path's own gap under
+    a last-bit change; a MoE model holds the bar on the token rows whose
+    routes the two paths share (``moe_kernel_vs_plain``).  Returns the
+    bf16 run's launches, its flash launches with a window (the local
+    layers) and, with ``keep``, (its model, params, first-call latency in
+    s) for the serving phase, else None."""
     from repro_torch.configs import get_config
     from repro_torch.examples import decode_cascade as dc
     from repro_torch.examples.depth_gap import nudge_f32
@@ -763,8 +802,13 @@ def phase_path(torch, dev, arch, f32_layers, logits_layers, keep=False):
     from repro_torch.models import build_model, transformer
 
     cfg = dataclasses.replace(get_config(arch), use_kernels=True)
+    cut = ""
+    if layers is not None:
+        cut = (f" (depth cut from {cfg.num_layers} to {layers} layers to "
+               f"fit one card; width full)")
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     L = cfg.num_layers
-    print(f"-- {cfg.name}: {L} layers, d_model {cfg.d_model}, d_ff "
+    print(f"-- {cfg.name}: {L} layers{cut}, d_model {cfg.d_model}, d_ff "
           f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.family}, {cfg.dtype}",
           flush=True)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -801,12 +845,15 @@ def phase_path(torch, dev, arch, f32_layers, logits_layers, keep=False):
           f"prompts x {SEQ} tokens, {STEPS} decode steps)", flush=True)
 
     # kernel path vs plain path, same params, on the card
-    e_pre, e_dec = kernel_vs_plain(torch, dev, cfg, params, toks)
+    if cfg.family == "moe":
+        e_pre, e_dec = moe_kernel_vs_plain(torch, dev, cfg, params, toks)
+    else:
+        e_pre, e_dec = kernel_vs_plain(torch, dev, cfg, params, toks)
     print(f"  {L}-layer logits rel err, kernel path vs plain path: "
           f"prefill {e_pre}, first decode {e_dec}", flush=True)
     if logits_layers is None:
-        check(max(e_pre, e_dec) < BF16_REL,
-              f"{L}-layer logits rel err {max(e_pre, e_dec)} < 0.05")
+        worst = max(e for e in (e_pre, e_dec) if e is not None)
+        check(worst < BF16_REL, f"{L}-layer logits rel err {worst} < 0.05")
     else:
         # the model amplifies the last-bit differences of any two correct
         # runs with depth: hold the full depth to the plain path's own gap
@@ -828,6 +875,10 @@ def phase_path(torch, dev, arch, f32_layers, logits_layers, keep=False):
         launches_long = phase_gemma2(torch, dev, cfg, model, params)
         print(f"  gemma2 extras' launches (long prompt, ring defect, "
               f"kv_quant): {launches_long}", flush=True)
+    if cfg.family == "moe":
+        moe_layer_check(torch, dev, cfg, params, BF16_REL)
+    if cfg.family == "audio":
+        phase_frames(torch, dev, cfg, model, params, toks)
     if cfg.family == "hybrid":
         # the reference's init gives a = sigmoid(-lam)^4 < 3e-8, so a*h
         # is below half an ulp of x and h_t = x_t on both paths to the
@@ -841,8 +892,11 @@ def phase_path(torch, dev, arch, f32_layers, logits_layers, keep=False):
     served = (model, params, lats[0]) if keep else None
     del model, params
     _release(torch)
+    if cfg.family == "moe":
+        phase_expert_quant(torch, dev, cfg)
 
     # float32 at reduced depth, full width: greedy tokens must be identical
+    torch.cuda.reset_peak_memory_stats(dev)
     cfg32 = dataclasses.replace(cfg, num_layers=f32_layers, dtype="float32")
     model, params, toks, got32, lats32, retraces32, _, _ = serve(
         torch, dev, cfg32)
@@ -854,7 +908,10 @@ def phase_path(torch, dev, arch, f32_layers, logits_layers, keep=False):
           f"{got32} == plain-path tokens {ref32}")
     check(retraces32[1:] == [0, 0], f"f32 re-traces per call {retraces32}")
     print(f"  f32 {f32_layers}-layer latency: first {lats32[0] * 1e3} ms, "
-          f"steady {min(lats32) * 1e3} ms", flush=True)
+          f"steady {min(lats32) * 1e3} ms; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev)} bytes", flush=True)
+    if cfg.family == "moe":
+        moe_layer_check(torch, dev, cfg32, params, MOE_F32_REL)
     del model, params, plain32
     _release(torch)
     return launches, windowed, served
@@ -2623,6 +2680,252 @@ def phase_families(torch, dev, smi):
         "smi": smi}), flush=True)
 
 
+# -- phase 9: the MoE family and whisper at full width ------------------------
+
+#: per arch: the bf16 path's depth (None: full), the f32 token check's
+#: depth.  One arctic layer is 27.2 GB in bf16 (its experts 26.8 GB), so
+#: two fit the card, and one in f32 (55.4 GB); one llama4 block (a dense
+#: layer, then a MoE layer with its shared expert) is 35.0 GB in bf16 and
+#: 70.1 GB in f32.  whisper-medium runs at full depth (24 + 24 layers).
+FAMILIES2 = (("arctic-480b", 2, 1), ("llama4-maverick-400b-a17b", 2, 2),
+             ("whisper-medium", None, 24))
+#: the served MoE layer against the masked combine in f32
+MOE_F32_REL = 1e-5
+
+
+def _routes(torch, fn):
+    """Call ``fn`` with every MoE router call recorded: (its result, the
+    experts each token took at each MoE layer, in call order, each
+    [tokens, k] sorted)."""
+    from repro_torch.models import moe
+
+    seen, real = [], moe._router
+
+    def recording(xf, router_w, k):
+        out = real(xf, router_w, k)
+        seen.append(torch.sort(out[1], dim=-1).values)
+        return out
+
+    moe._router = recording
+    try:
+        return fn(), seen
+    finally:
+        moe._router = real
+
+
+def _held_rows(torch, fwd, dec):
+    """The token rows whose logits depend only on routes the two paths
+    share.  ``fwd`` and ``dec`` are (kernel, plain) lists of the experts
+    each token took at each MoE layer, in layer order, for the forward
+    over the prompts and for a decode step after it.  A row depends on its
+    own token's routes at every MoE layer and, through the attention of
+    the layers after, on the routes of the earlier tokens of its prompt at
+    every MoE layer but the last.  Returns (forward rows held [B*S],
+    decode rows held [B], (token, layer) routes that differ, routes in
+    all)."""
+    def same(a, b):
+        return torch.stack([(x == y).all(-1) for x, y in zip(a, b)])
+
+    f = same(*fwd).reshape(len(fwd[0]), PROMPTS, -1)     # [layers, B, S]
+    d = same(*dec)                                        # [layers, B]
+    early = f[:-1].all(0)             # all True with a single MoE layer
+    prefix = torch.cummin(early.int(), dim=1).values.bool()
+    fwd_held = (f.all(0) & prefix).reshape(-1)
+    dec_held = d.all(0) & early.all(1)
+    differ = int((~f).sum()) + int((~d).sum())
+    return fwd_held, dec_held, differ, f.numel() + d.numel()
+
+
+def moe_kernel_vs_plain(torch, dev, cfg, params, toks):
+    """The kernel path's logits against the plain path's on a MoE model,
+    the same params and prompts: every position's logits of the full
+    forward, and the first decode step's.  A top-k route is
+    discontinuous, so a last-bit difference in a hidden state can send a
+    token to another expert; the rel 0.05 bar holds on the token rows
+    whose logits depend only on routes both paths share
+    (``_held_rows``: the token's own routes at every MoE layer, and the
+    earlier tokens' at every MoE layer but the last), and the other rows
+    and the differing routes are printed (the forward must hold some
+    rows; a decode row may hold none).  Checks the launches (flash per
+    layer for the forward and the prefill, decode per layer for the step;
+    none on the plain side).  Returns the held rows' rel err (forward,
+    first decode; None where no row is held)."""
+    from repro_torch.models import build_model
+
+    model = build_model(cfg, device=dev)
+    plain = build_model(dataclasses.replace(cfg, use_kernels=False),
+                        device=dev)
+    L = cfg.num_layers
+    nxt = None
+    pos = torch.full((PROMPTS,), SEQ, dtype=torch.int32, device=dev)
+    out = {}
+    for side, m in (("plain", plain), ("kernel", model)):
+        _zero_launches()
+        logits, r_fwd = _routes(
+            torch, lambda: m.logits(params, {"tokens": toks}))
+        first, cache = m.prefill(params, {"tokens": toks}, CACHE)
+        if nxt is None:          # both paths decode the plain path's token
+            nxt = first[:, -1].argmax(-1).to(torch.int32)[:, None]
+        (step, _), r_dec = _routes(
+            torch, lambda: m.decode_step(params, nxt, pos, cache))
+        out[side] = (logits.reshape(-1, logits.shape[-1]), step[:, -1],
+                     r_fwd, r_dec, _launches())
+        del logits, first, cache, step
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flash_attention=2 * L, decode_attention=L)
+    check(out["kernel"][4] == want
+          and out["plain"][4] == dict.fromkeys(KERNELS, 0),
+          f"{L} layers, a forward, a prefill and a decode step: kernel side "
+          f"launches {out['kernel'][4]} == {want}, plain side none")
+    held = _held_rows(torch, (out["kernel"][2], out["plain"][2]),
+                      (out["kernel"][3], out["plain"][3]))
+    print(f"  routes: {held[2]} of {held[3]} (token, MoE layer) routes "
+          f"differ between the paths (the forward and a decode step)",
+          flush=True)
+    errs = []
+    for what, i in (("forward", 0), ("first decode", 1)):
+        rows, k_rows, p_rows = held[i], out["kernel"][i], out["plain"][i]
+        n = int(rows.sum())
+        e = rel_err(k_rows[rows], p_rows[rows]) if n else None
+        rest = (rel_err(k_rows[~rows], p_rows[~rows])
+                if n < rows.numel() else None)
+        print(f"  {what}: {n} of {rows.numel()} token rows held (their "
+              f"logits depend only on routes both paths share): rel err "
+              f"{e}; the other rows {rest}", flush=True)
+        if what == "forward":
+            check(n > 0, f"{what}: {n} rows held")
+        errs.append(e)
+    return tuple(errs)
+
+
+def moe_layer_check(torch, dev, cfg, params, bar):
+    """The MoE layer on the card at full width: the served ``moe_apply``
+    against the plain ``moe_apply_reference`` on the same seeded hidden
+    states (the first MoE layer's params of ``params``), at the prefill's
+    ``PROMPTS * SEQ`` tokens and a decode step's ``PROMPTS``: rel err
+    within ``bar``, the aux loss equal; prints each one's time (CUDA
+    events) and the bytes of expert weights each reads (the served path
+    only its routed experts', the masked combine all E)."""
+    from repro_torch.interop import torch_dtype
+    from repro_torch.models import moe, transformer
+
+    specs, _ = transformer.block_layout(cfg)
+    blk = str(next(i for i, sp in enumerate(specs) if sp.is_moe))
+    lp = {k: v[0] for k, v in params["blocks"][blk]["moe"].items()}
+    per_expert = sum(w[0].numel() * w.element_size()
+                     for name, w in lp.items() if name != "router")
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    dt = torch_dtype(cfg.dtype)
+    rows = {}
+    for label, S in (("prefill", SEQ), ("decode", 1)):
+        x = torch.randn((PROMPTS, S, cfg.d_model), generator=g,
+                        device=dev).to(dt)
+        got, aux = moe.moe_apply(x, lp, cfg)
+        want, aux_ref = moe.moe_apply_reference(x, lp, cfg)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        T = PROMPTS * S
+        check(bool(torch.isfinite(got).all()) and err <= bar
+              and torch.equal(aux, aux_ref),
+              f"{cfg.name} {cfg.dtype} MoE layer, T {T}: served moe_apply "
+              f"vs moe_apply_reference rel err {err} <= {bar}, aux "
+              f"{float(aux)} == {float(aux_ref)}")
+        used = int(torch.unique(moe._router(
+            x.reshape(-1, cfg.d_model), lp["router"],
+            cfg.num_experts_per_tok)[1]).numel())
+        served_ms = time_ms(torch, lambda: moe.moe_apply(x, lp, cfg),
+                            iters=5, warmup=1)
+        ref_ms = time_ms(torch, lambda: moe.moe_apply_reference(x, lp, cfg),
+                         iters=2, warmup=1)
+        rows[label] = {"T": T, "rel_err": err, "served_ms": served_ms,
+                       "reference_ms": ref_ms, "experts_used": used,
+                       "served_expert_bytes": used * per_expert,
+                       "reference_expert_bytes":
+                           cfg.num_experts * per_expert}
+        print(f"  MoE layer {label} (T {T}, {cfg.dtype}): served "
+              f"{served_ms} ms reading {used} of {cfg.num_experts} experts,"
+              f" {used * per_expert} bytes; masked combine {ref_ms} ms "
+              f"reading {cfg.num_experts * per_expert} bytes", flush=True)
+    print("moe_layer: " + json.dumps({"model": cfg.name, "dtype": cfg.dtype,
+                                      **rows}), flush=True)
+    return rows
+
+
+def phase_expert_quant(torch, dev, cfg):
+    """``expert_quant``: the same model drawn from the seed with its expert
+    stacks in int8 (``init`` quantizes each stack as it is drawn), served
+    through the cascade: launches as the path needs them, no re-trace on
+    the repeat calls, fused tokens equal to the unfused loop."""
+    from repro_torch.examples import decode_cascade as dc
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg_q = dataclasses.replace(cfg, expert_quant=True)
+    model, params, toks, got, lats, retraces, dispatches, launches = serve(
+        torch, dev, cfg_q)
+    int8 = sum(t.numel() for t in _leaves(params) if t.dtype == torch.int8)
+    want = expected_launches(cfg_q, sum(dispatches), STEPS)
+    check(launches == want, f"expert_quant: launches {launches} == {want}")
+    check(retraces[1:] == [0, 0], f"expert_quant: re-traces per call "
+          f"{retraces}")
+    ref = dc.reference_decode(model, params, toks, steps=STEPS,
+                              cache_len=CACHE)
+    check(got == ref, f"expert_quant: fused cascade tokens == unfused loop "
+          f"{ref}")
+    print(f"  expert_quant: {int8} bytes of int8 experts; latency first "
+          f"{lats[0] * 1e3} ms, steady {min(lats) * 1e3} ms; peak device "
+          f"memory {torch.cuda.max_memory_allocated(dev)} bytes",
+          flush=True)
+    del model, params
+    _release(torch)
+
+
+def phase_frames(torch, dev, cfg, model, params, toks):
+    """whisper with frames: ``ServingEngine.generate`` with seeded stub
+    frames [PROMPTS, encoder_seq, D] (randn x 0.1) gives tokens in range,
+    and the frames move the logits (the same forward repeated does not);
+    each decode step passes the cross K/V on without a copy (the bytes a
+    clone of them would add are printed)."""
+    from repro_torch.serving import ServingEngine
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    frames = (0.1 * torch.randn((PROMPTS, cfg.encoder_seq, cfg.d_model),
+                                generator=g, device=dev)).to(torch.bfloat16)
+    batch = {"tokens": toks, "frames": frames}
+    engine = ServingEngine(model, cache_len=CACHE)
+    engine.generate(params, batch, STEPS)                  # warm
+    _zero_launches()
+    t0 = time.perf_counter()
+    got = engine.generate(params, batch, STEPS)
+    gen_s = time.perf_counter() - t0
+    check(_launches() == dict.fromkeys(KERNELS, 0),
+          f"generate with frames launched no kernel ({_launches()})")
+    check(got.shape == (PROMPTS, STEPS) and 0 <= got.min()
+          and got.max() < cfg.vocab_size,
+          f"generate with frames: {got.shape} tokens in range: "
+          f"{got.tolist()}")
+    with_frames = model.logits(params, batch)[:, -1]
+    again = model.logits(params, batch)[:, -1]
+    zeros = model.logits(params, {"tokens": toks})[:, -1]
+    e_frames, e_repeat = rel_err(zeros, with_frames), rel_err(again,
+                                                               with_frames)
+    check(e_frames > max(100 * e_repeat, 1e-3),
+          f"the frames move the logits: rel {e_frames} against zero frames,"
+          f" where the same forward repeated moves them by {e_repeat}")
+    _, cache = model.prefill(params, batch, CACHE)
+    pos = torch.full((PROMPTS,), SEQ, dtype=torch.int32, device=dev)
+    _, new = model.decode_step(params, toks[:, -1:], pos, cache)
+    cross = sum(cache[n].numel() * cache[n].element_size()
+                for n in ("ck", "cv"))
+    cloned = sum(cache[n].numel() * cache[n].element_size()
+                 for n in ("k", "v", "pos"))
+    check(all(new[n].data_ptr() == cache[n].data_ptr() for n in ("ck", "cv")),
+          f"a decode step passes ck/cv ({cross} bytes at B {PROMPTS}) on "
+          f"without a copy; it clones k/v/pos ({cloned} bytes)")
+    print(f"  {cfg.name}: generate ({PROMPTS} x {SEQ} tokens with frames, "
+          f"{STEPS} new) {gen_s * 1e3} ms; a clone of ck/cv would add "
+          f"{cross} bytes a step", flush=True)
+
+
 def kernel_vs_plain(torch, dev, cfg, params, toks):
     """Logits rel err of the kernel path against the plain path on the
     same params and prompts: (prefill, first decode step).  Checks that
@@ -2769,6 +3072,16 @@ def main() -> int:
     t0 = _phase("families", t0)
     phase_families(torch, dev, smi)
     _release(torch)
+
+    t0 = _phase("families II", t0)
+    for arch, layers, f32_layers in FAMILIES2:
+        _release(torch)
+        launches, _, _ = phase_path(torch, dev, arch, f32_layers, None,
+                                    layers=layers)
+        if f"flash_attention[{arch}]" in kernels:
+            for name, n in launches.items():
+                if n:
+                    kernels[f"{name}[{arch}]"]["launches"] = n
     _phase(None, t0)
     print(f"  chip_smoke total: {time.perf_counter() - T_START:.1f} s",
           flush=True)

@@ -1,13 +1,15 @@
 """Model facade and plan-operator glue (port of the reference package's
-``models/registry.py``: the dense (with gemma2), vlm (llama-3.2-vision),
-ssm (rwkv6) and hybrid (recurrentgemma) families).
+``models/registry.py``: all six families — dense (with gemma2), moe
+(arctic, llama4), vlm (llama-3.2-vision), audio (whisper), ssm (rwkv6)
+and hybrid (recurrentgemma)).
 
 ``build_model(cfg, device=None, long_context=False)`` returns a
 :class:`Model` with ``init(generator)``, ``logits``, ``prefill``,
 ``init_cache``, ``decode_step`` and ``input_specs(shape)``.
 ``model_stage_op(model, params, stage)`` wraps one serving stage as a
 ``ModelOp`` for the dataflow.  ``batch`` is a dict: {"tokens",
-"media"? (vlm stub patch embeddings [B, M, D])}.
+"media"? (vlm stub patch embeddings [B, M, D]), "frames"? (audio stub
+frame embeddings [B, encoder_seq, D])}.
 
 Row-wise column contracts (per table row), as in the reference:
 
@@ -17,16 +19,19 @@ Row-wise column contracts (per table row), as in the reference:
 * ``decode``  — (tok, pos, *cache leaves) -> same shape: one greedy
                                              decode step advances them
 
-The stages take no media: a vlm serves media through
+The stages take no media and no frames: a vlm serves media through
 ``ServingEngine.generate`` (``serving/engine.py``), and its ``logits``
-stage runs the text path alone.  Its ``prefill`` stage returns the
+stage runs the text path alone; its ``prefill`` stage returns the
 reference's columns: the prefill without media builds no ``ck``/``cv``
 leaves, so the op yields two cache columns fewer than its names (ROADMAP
-§3: reference behaviour the port copies).
+§3: reference behaviour the port copies).  whisper's stages run its
+encoder over zero frames, as the reference's do; ``generate`` takes
+frames.
 
 The cache rides the table as per-row columns, one per cache leaf in the
 order of ``jax.tree_util.tree_flatten`` (sorted keys at every level of
-the nesting: ``k0``, ``pos0``, ``v0`` for the dense family; ``blocks/0/
+the nesting: ``k0``, ``pos0``, ``v0`` for the dense and moe families;
+``ck``, ``cv``, ``k``, ``pos``, ``v`` for whisper; ``blocks/0/
 conv``, ``blocks/0/h``, ..., ``rest/...`` for recurrentgemma), so column
 ``c{i}`` is the reference's leaf ``i``.  Columns are batch-leading, so a
 prefill -> decode -> decode chain fuses into one device-resident chain.
@@ -48,13 +53,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import InputShape
 from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.interop import torch_dtype
-from repro_torch.models import rglru, rwkv6, transformer
+from repro_torch.models import rglru, rwkv6, transformer, whisper
 
-_FAMILY_MODULES = {"dense": transformer, "vlm": transformer, "ssm": rwkv6,
-                   "hybrid": rglru}
-#: families whose module takes ``long_context`` (the reference's own set,
-#: without moe)
-_LONG_CONTEXT = ("dense", "vlm")
+_FAMILY_MODULES = {"dense": transformer, "moe": transformer,
+                   "vlm": transformer, "ssm": rwkv6, "hybrid": rglru,
+                   "audio": whisper}
+#: families whose module takes ``long_context`` (the reference's own set)
+_LONG_CONTEXT = ("dense", "moe", "vlm")
 
 
 @dataclasses.dataclass
@@ -75,6 +80,8 @@ class Model:
         kw = self._kw()
         if self.cfg.family == "vlm":
             kw["media"] = batch.get("media")
+        if self.cfg.family == "audio":
+            kw["frames"] = batch.get("frames")
         return kw
 
     # -- params ------------------------------------------------------------
@@ -123,6 +130,9 @@ class Model:
             if cfg.family == "vlm":
                 specs["media"] = meta((B, cfg.num_media_tokens, cfg.d_model),
                                       torch_dtype(cfg.dtype))
+            if cfg.family == "audio":
+                specs["frames"] = meta((B, cfg.encoder_seq, cfg.d_model),
+                                       torch_dtype(cfg.dtype))
             return specs
         # decode: one token + cache of length S
         return {"tokens": meta((B, 1), i32), "pos": meta((B,), i32),
@@ -134,9 +144,8 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None, *,
     """The model on ``device`` (the CUDA device unless the caller names
     another; raises without a card)."""
     if cfg.family not in _FAMILY_MODULES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (have "
-            f"{sorted(_FAMILY_MODULES)})")
+        raise ValueError(f"unknown family {cfg.family!r} (have "
+                         f"{sorted(_FAMILY_MODULES)})")
     return Model(cfg=cfg, device=resolve_device(device),
                  long_context=long_context)
 

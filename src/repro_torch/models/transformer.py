@@ -1,13 +1,16 @@
 """Decoder-only transformer (port of the reference package's
 ``models/transformer.py``: the dense family — yi, glm4, granite and
-gemma2 — and the vlm family, llama-3.2-vision; MoE is not ported yet).
+gemma2 — the moe family — arctic and llama4 — and the vlm family,
+llama-3.2-vision).
 
 Layers are grouped into the smallest repeating *block*, as in the
 reference:
 
-* dense (yi, glm4, granite):  block = [attn+mlp]               x L
-* gemma2:                     block = [local, global]          x L/2
-* llama-3.2-vision:           block = [plain x4, cross+plain]  x L/5
+* dense (yi, glm4, granite):  block = [attn+mlp]                x L
+* gemma2:                     block = [local, global]           x L/2
+* arctic:                     block = [attn+moe(+dense res)]    x L
+* llama4-maverick:            block = [attn+mlp, attn+moe]      x L/2
+* llama-3.2-vision:           block = [plain x4, cross+plain]   x L/5
 
 Parameters keep the reference's layer-stacked layout (``blocks/"<i>"/...``
 leaves carry the block axis first), so bridged JAX params drop straight
@@ -16,7 +19,9 @@ stacked the same way: ``k<i>``/``v<i>`` ``[n_blocks, B, W, K, hd]`` ring
 buffers and ``pos<i>`` ``[n_blocks, B, W]`` slot positions (-1 = empty);
 with ``kv_quant`` the ring holds int8 values and ``ks<i>``/``vs<i>``
 ``[n_blocks, B, W, K]`` f32 scales; a cross layer adds the media K/V
-``ck<i>``/``cv<i>`` ``[n_blocks, B, M, K, hd]``.
+``ck<i>``/``cv<i>`` ``[n_blocks, B, M, K, hd]``.  A MoE layer's FFN is
+:func:`repro_torch.models.moe.moe_apply` (plus the dense residual or the
+shared expert, ``aux_mlp``); its caches are the dense ones.
 
 The prefill keeps the reference's ring layout: a layer of window W < S
 stores positions S-W..S-1 at slots 0..W-1, while a decode step writes
@@ -28,7 +33,8 @@ same, and the port keeps it for parity (ROADMAP.md §3).
 sites (the prefill's flash attention and the decode step's decode
 attention); on CPU tensors the kernel wrappers run their plain versions.
 Cross attention stays plain PyTorch, as in the reference, which calls no
-Pallas kernel there.
+Pallas kernel there, and so does the MoE layer, whose products the
+reference computes outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -41,33 +47,25 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.interop import torch_dtype
-from repro_torch.models import layers
+from repro_torch.models import layers, moe as moe_lib
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     window: int = 0            # 0 = full attention
+    is_moe: bool = False
     has_cross: bool = False    # gated cross-attention (vlm)
-
-
-#: config fields that change the reference's layout, cache or math and
-#: that this module does not read yet (MoE): field -> its default
-UNPORTED_FIELDS = {"num_experts": 0, "moe_layer_period": 1}
+    aux_mlp: bool = False      # dense residual (arctic) / shared expert
 
 
 def block_layout(cfg: ModelConfig, *, long_context: bool = False
                  ) -> Tuple[List[LayerSpec], int]:
-    """Return (specs for one block, n_blocks).  A config of another
-    family, or one that sets a field of ``UNPORTED_FIELDS``, raises
-    rather than being served as if the field were unset."""
-    if cfg.family not in ("dense", "vlm"):
+    """Return (specs for one block, n_blocks).  A config of a family this
+    module does not serve raises."""
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense and vlm only)")
-    unported = {f: getattr(cfg, f) for f, default in UNPORTED_FIELDS.items()
-                if getattr(cfg, f) != default}
-    if unported:
-        raise NotImplementedError(
-            f"{cfg.name}: config fields {unported} are not ported yet")
+            f"family {cfg.family!r} is not a transformer family (dense, "
+            "moe and vlm)")
     L = cfg.num_layers
     if cfg.family == "vlm" and cfg.cross_attn_period:
         p = cfg.cross_attn_period
@@ -85,6 +83,15 @@ def block_layout(cfg: ModelConfig, *, long_context: bool = False
             long_context and cfg.long_context_windowed) else 0
         return [LayerSpec(window=cfg.sliding_window)
                 for _ in range(p - 1)] + [LayerSpec(window=w_global)], L // p
+    if cfg.num_experts and cfg.moe_layer_period > 1:  # llama4
+        p = cfg.moe_layer_period
+        if L % p:
+            raise ValueError(f"{cfg.name}: {L} layers do not divide into "
+                             f"blocks of {p}")
+        return [LayerSpec() for _ in range(p - 1)] + [
+            LayerSpec(is_moe=True, aux_mlp=cfg.shared_expert)], L // p
+    if cfg.num_experts:  # arctic
+        return [LayerSpec(is_moe=True, aux_mlp=cfg.dense_residual)], L
     return [LayerSpec()], L
 
 
@@ -97,9 +104,11 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     """Random weights with the reference's shapes and scales
     (``transformer.py:init_params``): normal(0, 1/sqrt(fan_in)) matrices,
     normal(0, 1/sqrt(d)) embedding, zero rmsnorm scales, zero f32 cross
-    ``gate``s.  The draws come from ``generator`` (seed 0 when None) on
-    ``device``; they are not the reference's ``jax.random`` draws —
-    bridge those with :func:`repro_torch.interop.params_from_numpy`."""
+    ``gate``s; a MoE layer's experts come from ``moe.moe_init`` (int8 with
+    ``expert_quant``), in place of the dense MLP.  The draws come from
+    ``generator`` (seed 0 when None) on ``device``; they are not the
+    reference's ``jax.random`` draws — bridge those with
+    :func:`repro_torch.interop.params_from_numpy`."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -120,10 +129,27 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         "final_norm": norm(()),
         "blocks": {},
     }
-    for i, spec in enumerate(specs):
-        mlp = {"w_up": dense((n, D, F), D), "w_down": dense((n, F, D), F)}
+    def mlp():
+        p = {"w_up": dense((n, D, F), D), "w_down": dense((n, F, D), F)}
         if cfg.gated_mlp:
-            mlp["w_gate"] = dense((n, D, F), D)
+            p["w_gate"] = dense((n, D, F), D)
+        return p
+
+    for i, spec in enumerate(specs):
+        ffn: Dict[str, Any] = {}
+        if spec.is_moe:
+            m = moe_lib.moe_init(cfg, dtype, n, generator=generator,
+                                 device=dev)
+            if cfg.expert_quant:
+                # one matrix at a time, so the stack it replaces is freed
+                for name in [k for k in m if k != "router"]:
+                    m[name] = moe_lib.quantize_expert_weights(
+                        {name: m[name]})[name]
+            ffn["moe"] = m
+            if spec.aux_mlp:
+                ffn["aux_mlp"] = mlp()
+        else:
+            ffn["mlp"] = mlp()
         lp: Dict[str, Any] = {
             "ln1": norm(),
             "attn": {"wq": dense((n, D, Hp * hd), D),
@@ -131,7 +157,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                      "wv": dense((n, D, Kp * hd), D),
                      "wo": dense((n, Hp * hd, D), Hp * hd)},
             "ln2": norm(),
-            "mlp": mlp,
+            **ffn,
         }
         if cfg.post_norms:
             lp["post_ln1"] = norm()
@@ -265,7 +291,15 @@ def media_kv_from_embeddings(media, cp, cfg: ModelConfig):
     return mk, mv
 
 
-def _ffn(x, lp, cfg: ModelConfig):
+def _layer_ffn(x, lp, spec: LayerSpec, cfg: ModelConfig):
+    """The FFN part: the MLP, or the MoE layer plus its ``aux_mlp``.  The
+    router's load-balance loss, which only training reads, is dropped."""
+    if spec.is_moe:
+        y, _aux = moe_lib.moe_apply(x, lp["moe"], cfg)
+        if spec.aux_mlp:
+            y = y + layers.mlp_apply(x, lp["aux_mlp"], gated=cfg.gated_mlp,
+                                     act=cfg.act)
+        return y
     return layers.mlp_apply(x, lp["mlp"], gated=cfg.gated_mlp, act=cfg.act)
 
 
@@ -311,7 +345,7 @@ def forward(params, tokens, cfg: ModelConfig, *, media=None,
                     keep(f"ck{i}", mkv[0])
                     keep(f"cv{i}", mkv[1])
             h = layers.apply_norm(x, lp["ln2"], cfg.norm)
-            ffn_out = _ffn(h, lp, cfg)
+            ffn_out = _layer_ffn(h, lp, spec, cfg)
             if cfg.post_norms:
                 ffn_out = layers.apply_norm(ffn_out, lp["post_ln2"], cfg.norm)
             x = x + ffn_out
@@ -422,7 +456,7 @@ def decode_step(params, tokens, pos, cache, cfg: ModelConfig, *,
                 mkv = (new_cache[f"ck{i}"][j], new_cache[f"cv{i}"][j])
                 x = x + _cross_attention(x, lp["cross"], cfg, mkv)
             h = layers.apply_norm(x, lp["ln2"], cfg.norm)
-            ffn_out = _ffn(h, lp, cfg)
+            ffn_out = _layer_ffn(h, lp, spec, cfg)
             if cfg.post_norms:
                 ffn_out = layers.apply_norm(ffn_out, lp["post_ln2"], cfg.norm)
             x = x + ffn_out

@@ -46,8 +46,10 @@ class ServingEngine:
                  generator: Optional[torch.Generator] = None) -> np.ndarray:
         """Greedy generation, or sampled at ``temperature`` > 0 when a
         ``generator`` is given.  ``batch["tokens"]`` [B, S] (and, for a
-        vlm, ``batch["media"]`` [B, M, D]) lie on the model's device.
-        Returns the new tokens, [B, max_new_tokens]."""
+        vlm, ``batch["media"]`` [B, M, D]; for whisper,
+        ``batch["frames"]`` [B, encoder_seq, D]) lie on the model's
+        device; the prefill gets the whole batch.  Returns the new
+        tokens, [B, max_new_tokens]."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         cache_len = max(self.cache_len, S + max_new_tokens)

@@ -64,6 +64,8 @@ def _close(got, want, dtype):
     (1, 4, 4, 64, 64, 0, 30.0, True),        # softcap
     (1, 2, 1, 70, 64, 0, 0.0, False),        # non-causal, ragged
     (4, 32, 4, 256, 128, 0, 0.0, True),      # yi-9b prefill shape
+    (4, 56, 8, 256, 128, 0, 0.0, True),      # arctic-480b: group 7
+    (2, 40, 8, 130, 128, 0, 0.0, True),      # llama4: group 5, ragged S
 ])
 def test_flash_kernel_matches_plain(dev, dtype, B, H, K, S, hd, window,
                                     softcap, causal):
@@ -107,6 +109,8 @@ def _ring(B, S, filled, dev):
     (4, 32, 4, 1024, 128, 0, 0.0),   # yi-9b decode shape
     (2, 48, 1, 1024, 128, 0, 0.0),   # granite-34b: G = 48, two passes
     (2, 80, 2, 100, 64, 16, 0.0),    # G = 40, ragged S + window
+    (4, 56, 8, 1024, 128, 0, 0.0),   # arctic-480b decode shape: G = 7
+    (2, 40, 8, 100, 128, 16, 0.0),   # llama4: G = 5, ragged S + window
 ])
 def test_decode_kernel_matches_plain(dev, dtype, B, H, K, S, hd, window,
                                      softcap):
@@ -1008,12 +1012,15 @@ def test_kv_quant_round_trip_on_card(dev):
 
 @pytest.mark.parametrize("arch,kv_quant", [("gemma2-9b", False),
                                            ("gemma2-9b", True),
-                                           ("yi-9b", True)])
+                                           ("yi-9b", True),
+                                           ("arctic-480b", False),
+                                           ("llama4-maverick-400b-a17b",
+                                            False)])
 def test_tiny_families_on_card_match_plain(dev, arch, kv_quant):
-    """Tiny f32 gemma2 (window, softcaps, post-norms) and the int8 cache
-    on the card: the kernel path's prefill logits are the plain path's
-    within 1e-4, its greedy tokens equal the plain path's past the local
-    window, and the kernels launched."""
+    """Tiny f32 gemma2 (window, softcaps, post-norms), the int8 cache and
+    the MoE archs on the card: the kernel path's prefill logits are the
+    plain path's within 1e-4, its greedy tokens equal the plain path's
+    past the local window, and the kernels launched."""
     from repro_torch.configs import get_tiny_config
     from repro_torch.models import build_model
     from repro_torch.serving import ServingEngine
@@ -1069,3 +1076,107 @@ def test_tiny_vlm_on_card_media_and_logits_stage(dev):
     op = model_stage_op(model, params, "logits", measure=False)
     rows = op.fn.__batched__(toks)
     torch.testing.assert_close(rows, without[:, -1], atol=1e-5, rtol=1e-5)
+
+
+def _moe_layer(arch, dev, dtype, quant=False):
+    """A MoE layer of ``arch``'s family at a width between tiny and full
+    (16 experts, d_model 512, expert width 384) on the card, its weights
+    in ``dtype`` (int8 with ``quant``), and seeded hidden states
+    [4, 64, 512]."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_tiny_config(arch), num_experts=16,
+                              d_model=512, expert_d_ff=384,
+                              dtype=str(dtype).split(".")[-1])
+    p = moe.moe_init(cfg, dtype, 1, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+    if quant:
+        p = moe.quantize_expert_weights(p)
+    lp = {k: (v[0] if not isinstance(v, dict)
+              else {n: t[0] for n, t in v.items()}) for k, v in p.items()}
+    return cfg, lp, _rand((4, 64, 512), dtype, dev, 48, scale=1.0)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["arctic-480b",
+                                  "llama4-maverick-400b-a17b"])
+def test_served_moe_layer_on_card_matches_plain(dev, arch, dtype, quant):
+    """The served MoE layer (sorted pairs, grouped products) against the
+    masked combine on the card: rel 0.05 in bf16, 1e-5 in f32, the aux
+    loss equal; at a decode step's 4 tokens too."""
+    from repro_torch.models import moe
+
+    cfg, lp, x = _moe_layer(arch, dev, dtype, quant)
+    bar = 1e-5 if dtype == torch.float32 else 0.05
+    for xs in (x, x[:, :1]):
+        got, aux = moe.moe_apply(xs, lp, cfg)
+        want, aux_ref = moe.moe_apply_reference(xs, lp, cfg)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all() and torch.equal(aux, aux_ref)
+        rel = (got.float() - want.float()).abs().max() / \
+            want.float().abs().max()
+        assert rel <= bar, float(rel)
+
+
+@pytest.mark.parametrize("arch", ["arctic-480b",
+                                  "llama4-maverick-400b-a17b"])
+def test_served_moe_layer_reads_nothing_back_in_bf16(dev, arch):
+    """In bf16 the served MoE layer never waits for the card: CUDA's sync
+    debug mode raises on any operation that reads back to the host."""
+    from repro_torch.models import moe
+
+    cfg, lp, x = _moe_layer(arch, dev, torch.bfloat16)
+    moe.moe_apply(x, lp, cfg)                          # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        moe.moe_apply(x, lp, cfg)
+        moe.moe_apply(x[:, :1], lp, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_tiny_whisper_on_card_matches_cpu(dev):
+    """Tiny f32 whisper on the card: ``generate`` with frames gives the
+    CPU's tokens on the same params and frames, and launches no kernel
+    (its attention stays plain, as in the reference)."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServingEngine
+
+    cfg = dataclasses.replace(get_tiny_config("whisper-medium"),
+                              dtype="float32", use_kernels=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    cpu = build_model(cfg, device="cpu")
+    params_cpu = torch.utils._pytree.tree_map(lambda t: t.cpu(), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    frames = _rand((2, cfg.encoder_seq, cfg.d_model), torch.float32, dev,
+                   49, scale=0.1)
+    counts = {k: getattr(kops, k).launches
+              for k in ("flash_attention", "decode_attention")}
+    got = ServingEngine(model, cache_len=32).generate(
+        params, {"tokens": toks.to(dev), "frames": frames}, 6)
+    assert {k: getattr(kops, k).launches for k in counts} == counts
+    want = ServingEngine(cpu, cache_len=32).generate(
+        params_cpu, {"tokens": toks, "frames": frames.cpu()}, 6)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_int8_expert_dequant_on_card_matches_cpu(dev):
+    """The int8 experts' dequantization (f32 product, one rounding to
+    bf16) gives the CPU's values on the card, to the bit."""
+    from repro_torch.models import moe
+
+    w = _rand((2, 4, 256, 384), torch.float32, dev, 50, scale=0.05)
+    q = moe.quantize_expert_weights({"w_up": w})["w_up"]
+    got = moe._maybe_dequant(q)
+    want = moe._maybe_dequant({n: t.cpu() for n, t in q.items()})
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(q["q"].cpu(), moe.quantize_expert_weights(
+        {"w_up": w.cpu()})["w_up"]["q"])
