@@ -139,9 +139,32 @@ ignored):
    ``ServingEngine.generate`` with seeded frames, the frames' effect on
    the logits, the cross K/V passed on uncopied (``phase_frames``), f32
    tokens at full depth.
-10. The last line: ``{"ok": true, "device": {...}}``; before it a
-   ``kernels`` JSON line (with gemma2-9b's and arctic-480b's attention
-   rows) and the nvidia-smi line.  Each phase prints its seconds.
+10. Entry points (see ``phase_entry``), after phase 7 on phase 4's
+   yi-9b weights, everything at full width: ``serve_batched.run`` over
+   ``launch.serve.build_flow`` (12 requests at once, ``max_batch=8``,
+   ``batch_wait_ms=20``, 8 new tokens, cache 128; ``generate`` on two
+   CPU executors calling the engine at once): req/s, p50/p99, batch
+   sizes, each completion equal to ``ServingEngine.generate`` on its
+   prompt, the launch counters exact; the quickstart ensemble (yi-9b,
+   glm4-9b and gemma2-9b, the other two drawn from their seeds): two
+   urls, each answer's label and confidence held to the plain path on
+   the same weights, ms per request; the image cascade (yi-9b, then
+   granite-34b at 48 of its 88 layers, width full): 6 images one a
+   request (per-row path) and all in one request (one batched dispatch
+   of the escalation chain, no per-row fallback), labels held to the
+   plain path, escalations and the median ms; then the roofline of
+   phase 4's steady yi-9b cascade (``roofline.flops.estimate`` over its
+   calls: the lower bound and MFU beside the measured call, each share
+   at most 1) and ``from_counted``'s FLOPs of one prefill beside
+   ``estimate``'s.  Phase 3 has flash rows at the phase's shapes
+   (glm4-9b [1, 32, 16, 128] K 2, granite-34b [8, 48, 16, 128] K 1);
+   their launches are the ones the wrapper counted at those heads
+   (``flash_attention.launches_by_heads``) in the quickstart's run and
+   in the cascade's batched run.
+11. The last line: ``{"ok": true, "device": {...}}``; before it a
+   ``kernels`` JSON line (with gemma2-9b's, arctic-480b's, glm4-9b's and
+   granite-34b's attention rows) and the nvidia-smi line.  Each phase
+   prints its seconds.
 
 Exits non-zero with no result when CUDA is unavailable or the port's
 package is missing.
@@ -159,9 +182,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 SEED = 0
-H100_BYTES_PER_S = 3.35e12           # HBM3, NVIDIA data sheet (SXM)
-H100_FLOPS = {"bfloat16": 989e12,    # dense tensor-core peak
-              "float32": 67e12}      # f32 outside the tensor cores
 BF16_REL, F32_REL = 0.05, 1e-4       # the reference's kernel bars
 SPIN_CYCLES = 500_000                # ~0.3 ms at the H100's clocks
 KERNELS = ("decode_attention", "flash_attention", "wkv6", "rglru_scan")
@@ -171,7 +191,8 @@ KERNEL_ROWS = ("decode_attention", "flash_attention",
                "decode_attention[gemma2-9b]", "flash_attention[gemma2-9b]",
                "flash_attention[gemma2-9b global]", "wkv6", "rglru_scan",
                "decode_attention[arctic-480b]",
-               "flash_attention[arctic-480b]")
+               "flash_attention[arctic-480b]", "flash_attention[glm4-9b]",
+               "flash_attention[granite-34b]")
 T_START = time.perf_counter()
 #: per path: arch, depth of the f32 token check, depth at which the bf16
 #: logits of the kernel path are held to the 0.05 bar (None: full).
@@ -210,6 +231,18 @@ PLAN_DRILL_SLACK = 64 << 20
 #: at a time through the estimator's feasible range
 PLAN_RATE_WINDOWS = 4.0
 PLAN_GATE_WINDOW_S = 10.0
+#: phase 10: the entry points' prompt length (the launcher's tokenizer,
+#: the quickstart's and the cascade's inputs are 16 tokens); the serving
+#: burst (requests, new tokens, and the engine cache ``launch.serve``
+#: builds with); the cascade's images and
+#: granite-34b's depth (48 of 88 layers: 37 GB beside yi-9b's 17.1 GB);
+#: the flash rows at the phase's shapes: (arch, batch), glm4-9b one url a
+#: request in the quickstart, granite-34b the cascade's 6 images padded
+#: to a bucket of 8
+ENTRY_SEQ = 16
+ENTRY_REQUESTS, ENTRY_NEW, ENTRY_CACHE = 12, 8, 128
+CASCADE_IMAGES, GRANITE_LAYERS = 6, 48
+ENTRY_FLASH = (("glm4-9b", 1), ("granite-34b", 8))
 
 
 class SmokeFailure(RuntimeError):
@@ -304,7 +337,6 @@ def _attention_rows(torch, dev, g, flush, suffix, H, K):
 
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.decode_attention import decode_attention_plain
-    from repro_torch.kernels.flash_attention import flash_attention_plain
 
     B, hd = 4, 128
     results = {}
@@ -361,8 +393,21 @@ def _attention_rows(torch, dev, g, flush, suffix, H, K):
             "instance": f"split-S x{splits}",
         }
 
-    # -- flash attention, the prefill ----------------------------------------
-    S = 256
+    results.update(_flash_rows(torch, dev, g, flush, suffix, B, H, K, 256))
+    return results
+
+
+def _flash_rows(torch, dev, g, flush, suffix, B, H, K, S, hd=128):
+    """Flash attention at [B, H, S, hd] (K kv heads, causal) against its
+    plain version in f32 and bf16; the bf16 run is timed and gives the
+    row ``flash_attention<suffix>``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    results = {}
+    where = f"H {H}, K {K} (group {H // K})"
     for dtype, bar in ((torch.float32, F32_REL), (torch.bfloat16, BF16_REL)):
         q, k, v = (torch.randn((B, S, n, hd), generator=g, device=dev).to(
             dtype).transpose(1, 2) for n in (H, K, K))   # model's views
@@ -372,8 +417,8 @@ def _attention_rows(torch, dev, g, flush, suffix, H, K):
         err = rel_err(got, want)
         abs_err = float((got.float() - want.float()).abs().max())
         check(bool(torch.isfinite(got).all()) and err < bar,
-              f"flash_attention {dtype} at {where}: rel err {err} < {bar} "
-              f"(max abs {abs_err})")
+              f"flash_attention {dtype} at [{B}, {H}, {S}, {hd}], {where}: "
+              f"rel err {err} < {bar} (max abs {abs_err})")
         instance = kops.flash_attention.last_instance
         want_instance = "wgmma" if dtype == torch.bfloat16 else "simt"
         check(instance == want_instance, f"flash_attention {dtype} at "
@@ -404,6 +449,8 @@ def _attention_rows(torch, dev, g, flush, suffix, H, K):
 
 
 def phase_kernels(torch, dev, flush):
+    from repro_torch.configs import get_config
+
     g = torch.Generator(device=dev).manual_seed(SEED)
     # yi-9b's shapes (H 32, K 4: group 4) give the base rows
     results = _attention_rows(torch, dev, g, flush, "", 32, 4)
@@ -414,6 +461,17 @@ def phase_kernels(torch, dev, flush):
     g7 = torch.Generator(device=dev).manual_seed(SEED + 7)
     results.update(_attention_rows(torch, dev, g7, flush, "[arctic-480b]",
                                    56, 8))
+    # the entry points' prompts (phase 10): glm4-9b's and granite-34b's
+    # flash at their batches, each from a generator of its own
+    for arch, B in ENTRY_FLASH:
+        cfg = get_config(arch)
+        H, K = cfg.num_heads, cfg.num_kv_heads
+        gi = torch.Generator(device=dev).manual_seed(SEED + H // K)
+        row = _flash_rows(torch, dev, gi, flush, f"[{arch}]", B, H, K,
+                          ENTRY_SEQ)[f"flash_attention[{arch}]"]
+        row["shape"] = (f"{arch}: [{B}, {H}, {ENTRY_SEQ}, 128], K {K} "
+                        f"(group {H // K}), causal")
+        results[row["name"]] = row
     for r in results.values():
         lib = r["library_ms"]
         lib_text = r.get("library_note") or (
@@ -616,8 +674,15 @@ def phase_gemma2_kernels(torch, dev, g, flush):
 
 
 def _bound(nbytes, flops, peak):
-    bound_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    bound_ops = flops / H100_FLOPS[peak] * 1e3
+    """The least time of the work on the card (ms) and what bounds it: its
+    bytes over HBM bandwidth or its operations over the peak of their type
+    (the H100's data-sheet constants of ``repro_torch.roofline.hw``, the
+    same ones the roofline line reads)."""
+    from repro_torch.roofline import hw
+
+    peaks = {"bfloat16": hw.PEAK_FLOPS_BF16, "float32": hw.PEAK_FLOPS_F32}
+    bound_bytes = nbytes / hw.HBM_BW * 1e3
+    bound_ops = flops / peaks[peak] * 1e3
     return {"bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops
             else "operations"}
@@ -794,7 +859,7 @@ def phase_path(torch, dev, arch, f32_layers, logits_layers, keep=False,
     routes the two paths share (``moe_kernel_vs_plain``).  Returns the
     bf16 run's launches, its flash launches with a window (the local
     layers) and, with ``keep``, (its model, params, first-call latency in
-    s) for the serving phase, else None."""
+    s, and the steady call in s) for the serving phases, else None."""
     from repro_torch.configs import get_config
     from repro_torch.examples import decode_cascade as dc
     from repro_torch.examples.depth_gap import nudge_f32
@@ -889,7 +954,7 @@ def phase_path(torch, dev, arch, f32_layers, logits_layers, keep=False,
                                      toks))
         check(e_live < BF16_REL, f"{L}-layer logits rel err {e_live} < 0.05 "
               "with lam negated (prefill and first decode)")
-    served = (model, params, lats[0]) if keep else None
+    served = (model, params, lats[0], min(lats)) if keep else None
     del model, params
     _release(torch)
     if cfg.family == "moe":
@@ -1135,6 +1200,15 @@ def _zero_launches():
     for name in KERNELS:
         getattr(kops, name).launches = 0
     kops.flash_attention.windowed_launches = 0
+    kops.flash_attention.launches_by_heads = {}
+
+
+def _flash_by_heads():
+    """The flash launches since the last :func:`_zero_launches`, by
+    ``(B, H, K)``."""
+    from repro_torch.kernels import ops as kops
+
+    return dict(kops.flash_attention.launches_by_heads)
 
 
 def _burst(dep, toks, idx, **call_kw):
@@ -2926,6 +3000,326 @@ def phase_frames(torch, dev, cfg, model, params, toks):
           f"{cross} bytes a step", flush=True)
 
 
+# -- phase 10: the serving launcher, the quickstart and the image cascade ---
+
+def phase_entry(torch, dev, model, params, steady_s):
+    """Phase 10 (see the module docstring), on phase 4's yi-9b model and
+    params; ``steady_s`` is phase 4's steady cascade call.  Returns the
+    flash launches of the phase's glm4-9b and granite-34b rows."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    _part_serve_batched(torch, dev, model, params)
+    glm4 = _part_quickstart(torch, dev, params)
+    _release(torch)
+    granite = _part_cascade(torch, dev, params)
+    _release(torch)
+    _part_roofline(torch, dev, model, params, steady_s)
+    print(f"  entry points: peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev)} bytes, with the "
+          f"{held} bytes of yi-9b held before the phase", flush=True)
+    return {"flash_attention[glm4-9b]": glm4,
+            "flash_attention[granite-34b]": granite}
+
+
+def _part_serve_batched(torch, dev, model, params):
+    """``serve_batched.run`` over ``launch.serve.build_flow`` at full
+    width: a burst of ``ENTRY_REQUESTS`` requests on two CPU executors
+    (both call the engine on the card at once), each completion held to
+    ``ServingEngine.generate`` on its own prompt (a runtime batch reaches
+    ``generate`` one row at a time, so its members run alone at B 1, the
+    oracle's shape), and the launch counters moved by exactly what those
+    calls need (the counters take a lock: a lost update would show)."""
+    import numpy as np
+
+    from repro_torch.examples import serve_batched as sb
+    from repro_torch.serving import ServingEngine
+
+    L = model.cfg.num_layers
+    _zero_launches()
+    r = sb.run(ENTRY_REQUESTS, arch="yi-9b", tiny=False, device=dev,
+               params=params, new_tokens=ENTRY_NEW,
+               hang_timeout_s=PATH_HANG_TIMEOUT_S)
+    launches = _launches()
+    print(f"  serve_batched (full-width {model.cfg.name}, {ENTRY_REQUESTS} "
+          f"requests at once, max_batch {sb.MAX_BATCH}, batch_wait_ms "
+          f"{sb.BATCH_WAIT_MS}, {ENTRY_NEW} new tokens, cache "
+          f"{ENTRY_CACHE}): {r['req_per_s']} req/s, p50 {r['p50_ms']} ms, "
+          f"p99 {r['p99_ms']} ms, batch sizes {r['batch_sizes']}, "
+          f"launches {launches}", flush=True)
+    check(r["wedges"] == 0 and sum(r["batch_sizes"]) == ENTRY_REQUESTS,
+          f"serve_batched: no wedge, {ENTRY_REQUESTS} requests in batches "
+          f"{r['batch_sizes']}")
+    want = dict.fromkeys(KERNELS, 0)
+    want["flash_attention"] = L * ENTRY_REQUESTS
+    want["decode_attention"] = L * ENTRY_NEW * ENTRY_REQUESTS
+    check(launches == want, f"serve_batched launches {launches} == {want} "
+          f"(a prefill and {ENTRY_NEW} decode steps a request, counted "
+          f"from two executor threads)")
+    engine = ServingEngine(model, cache_len=ENTRY_CACHE)
+    for i, got in enumerate(r["completions"]):
+        text = f"request {i}".encode()[:ENTRY_SEQ].ljust(ENTRY_SEQ)
+        toks = torch.as_tensor(np.frombuffer(text, np.uint8).astype(
+            np.int32) % model.cfg.vocab_size, device=dev)[None]
+        want_toks = engine.generate(params, {"tokens": toks}, ENTRY_NEW)[0]
+        if got != " ".join(str(int(t)) for t in want_toks):
+            raise SmokeFailure(f"serve_batched request {i}: {got!r} != "
+                               f"generate's {want_toks.tolist()}")
+    check(True, f"serve_batched: all {ENTRY_REQUESTS} completions == "
+          "ServingEngine.generate on each prompt alone")
+
+
+def _near_tie(plain_logits, top, other, noise):
+    """Is class ``other`` within ``noise`` of class ``top`` in one row of
+    the plain path's logits (so that the two paths may order them
+    either way)?"""
+    return float(plain_logits[top] - plain_logits[other]) <= noise
+
+
+def _logits_pair(torch, dev, cfg, params, toks):
+    """The last position's logits of the kernel path and the plain path
+    on the same params and prompts (one call each, at the prompts' batch),
+    and the largest absolute difference between the two."""
+    from repro_torch.models import build_model
+
+    out = []
+    for kernels in (True, False):
+        m = build_model(dataclasses.replace(cfg, use_kernels=kernels),
+                        device=dev)
+        with torch.no_grad():
+            out.append(m.logits(params, {"tokens": toks})[:, -1].float())
+    return out[0], out[1], float((out[0] - out[1]).abs().max())
+
+
+def _part_quickstart(torch, dev, yi_params):
+    """The Figure-1 ensemble at full width: yi-9b (phase 4's weights),
+    glm4-9b and gemma2-9b (drawn from their seeds on the card).  Each
+    answer (the flow keeps only the winning confidence) is held to the
+    members' kernel-path logits and to the plain path on the same
+    weights: the winning member's label equal (or, where the plain path
+    itself puts the two classes within the kernel path's measured logits
+    gap, a near tie, printed), its confidence within rel 0.05.  Returns
+    glm4-9b's flash launches in the served run, counted by its heads."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.examples import quickstart as qs
+    from repro_torch.models import build_model
+
+    params = {qs.MODELS[0][0]: yi_params}
+    for arch, seed in qs.MODELS[1:]:
+        m = build_model(qs.model_config(arch, tiny=False), device=dev)
+        params[arch] = m.init(torch.Generator(device=dev).manual_seed(seed))
+    sizes = {a: sum(t.numel() * t.element_size() for t in _leaves(p))
+             for a, p in params.items()}
+    print(f"  quickstart weights (bytes): {sizes}, "
+          f"{torch.cuda.memory_allocated(dev)} allocated", flush=True)
+    _zero_launches()
+    r = qs.run(tiny=False, device=dev, params=params)
+    launches, by_heads = _launches(), _flash_by_heads()
+    cfgs = {a: get_config(a) for a, _ in qs.MODELS}
+    heads = {a: (1, c.num_heads, c.num_kv_heads) for a, c in cfgs.items()}
+    want = dict.fromkeys(KERNELS, 0)
+    want["flash_attention"] = len(qs.URLS) * sum(c.num_layers
+                                                 for c in cfgs.values())
+    want_heads = {heads[a]: len(qs.URLS) * c.num_layers
+                  for a, c in cfgs.items()}
+    print(f"  quickstart launches {launches}, flash by (B, H, K) "
+          f"{by_heads}", flush=True)
+    check(launches == want and by_heads == want_heads,
+          f"quickstart launches {launches} == {want}, by (B, H, K) "
+          f"{by_heads} == {want_heads} (one prefill of every member a "
+          f"request, {len(qs.URLS)} requests)")
+    toks = torch.as_tensor(np.stack([qs.preproc(u) for u in qs.URLS]),
+                           device=dev)
+    kern, plain, gap = {}, {}, {}
+    for arch, _ in qs.MODELS:
+        cfg = qs.model_config(arch, tiny=False)
+        # one url a call, at B 1 as the flow scores them
+        pairs = [_logits_pair(torch, dev, cfg, params[arch], toks[u:u + 1])
+                 for u in range(len(qs.URLS))]
+        kern[arch] = torch.cat([k for k, _, _ in pairs])
+        plain[arch] = torch.cat([p for _, p, _ in pairs])
+        gap[arch] = max(g for _, _, g in pairs)
+        e = rel_err(kern[arch], plain[arch])
+        check(e < BF16_REL, f"quickstart {arch}: last-position logits rel "
+              f"err {e} < {BF16_REL} (max abs {gap[arch]})")
+    for u, (url, answer) in enumerate(zip(qs.URLS, r["answers"])):
+        # the members as the flow scores them: the softmax of the last
+        # position in the model's dtype, the most confident one winning
+        kprobs = {a: torch.softmax(kern[a][u].to(torch.bfloat16), dim=-1)
+                  for a in kern}
+        arch = max(kprobs, key=lambda a: float(kprobs[a].max()))
+        kconf = float(kprobs[arch].max())
+        cls = int(torch.argmax(kprobs[arch]))
+        label = f"{arch}:class{cls}"
+        e = abs(answer["max"] - kconf) / kconf
+        check(e < BF16_REL, f"{url}: the flow's answer {answer['max']} is "
+              f"the kernel path's best member confidence {kconf} ({label}; "
+              f"rel {e} < {BF16_REL})")
+        probs = {a: torch.softmax(plain[a][u].to(torch.bfloat16), dim=-1)
+                 for a in plain}
+        best = max(plain, key=lambda a: float(probs[a].max()))
+        conf = float(probs[best].max())
+        want_label = f"{best}:class{int(torch.argmax(probs[best]))}"
+        e = abs(answer["max"] - conf) / conf
+        tie = label != want_label and _near_tie(
+            plain[arch][u], int(torch.argmax(plain[arch][u])), cls,
+            gap[arch]) and float(probs[arch][cls]) >= (1 - BF16_REL) * conf
+        check((label == want_label or tie) and e < BF16_REL,
+              f"{url}: {label} conf {answer['max']} ({r['ms'][u]} ms); "
+              f"plain path {want_label} conf {conf} (rel {e} < "
+              f"{BF16_REL}){' a NEAR TIE' if tie else ''}")
+    print(f"  quickstart: ms per request {r['ms']} (full width, three "
+          f"members)", flush=True)
+    return by_heads[heads["glm4-9b"]]
+
+
+def _part_cascade(torch, dev, yi_params):
+    """The paper's image cascade: yi-9b (phase 4's weights) answers,
+    granite-34b at ``GRANITE_LAYERS`` of its 88 layers (full width, drawn
+    from its seed) takes the escalations.  ``CASCADE_IMAGES`` images one
+    a request (the per-row path) and all in one request (the batched
+    path: one dispatch of the escalation chain, its filter a mask
+    column, no per-row fallback).  Labels are held to the plain path on
+    the same weights (equal, or a near tie as in the quickstart).
+    Returns granite-34b's flash launches on the batched path, counted by
+    its heads."""
+    from repro_torch.core.lowering import bucket_rows
+    from repro_torch.examples import image_cascade as ic
+    from repro_torch.models import build_model
+
+    gcfg = ic.stage_config(ic.COMPLEX[0], tiny=False,
+                           num_layers=GRANITE_LAYERS)
+    gparams = build_model(gcfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(ic.COMPLEX[1]))
+    print(f"  cascade: {gcfg.name} at {GRANITE_LAYERS} of 88 layers (depth "
+          f"cut to fit beside yi-9b; width full), "
+          f"{sum(t.numel() * t.element_size() for t in _leaves(gparams))} "
+          f"bytes", flush=True)
+    params = {ic.SIMPLE[0]: yi_params, ic.COMPLEX[0]: gparams}
+    ycfg = ic.stage_config(ic.SIMPLE[0], tiny=False)
+    runs, by_heads = {}, {}
+    B = bucket_rows(CASCADE_IMAGES)
+    for per in (1, CASCADE_IMAGES):
+        _zero_launches()
+        runs[per] = ic.run(CASCADE_IMAGES, tiny=False, device=dev,
+                           per_request=per, params=params,
+                           complex_layers=GRANITE_LAYERS,
+                           hang_timeout_s=PATH_HANG_TIMEOUT_S)
+        launches, by_heads[per] = _launches(), _flash_by_heads()
+        # every chain call runs both stages (the filter is a mask): one
+        # call a row at B 1 on the per-row path, one for the whole batch
+        # at its padded bucket on the other
+        calls, b = (CASCADE_IMAGES, 1) if per == 1 else (1, B)
+        want = dict.fromkeys(KERNELS, 0)
+        want["flash_attention"] = calls * (ycfg.num_layers + GRANITE_LAYERS)
+        want_heads = {
+            (b, c.num_heads, c.num_kv_heads): calls * c.num_layers
+            for c in (ycfg, gcfg)}
+        print(f"  cascade, {per} image(s) a request: launches {launches}, "
+              f"flash by (B, H, K) {by_heads[per]}", flush=True)
+        check(launches == want and by_heads[per] == want_heads,
+              f"cascade, {per} image(s) a request: launches {launches} == "
+              f"{want}, by (B, H, K) {by_heads[per]} == {want_heads}")
+    one, batched = runs[1], runs[CASCADE_IMAGES]
+    check((one["row_dispatches"], one["batch_dispatches"]) ==
+          (CASCADE_IMAGES, 0) and (batched["batch_dispatches"],
+                                   batched["row_dispatches"]) == (1, 0)
+          and not (batched["vmap_fallback"] or batched["fallback"]
+                   or one["vmap_fallback"] or one["fallback"]),
+          f"escalation chain: {CASCADE_IMAGES} per-row dispatches one image "
+          f"a request; ONE batched dispatch for {CASCADE_IMAGES} images "
+          f"(no per-row fallback)")
+    toks = torch.stack(ic.draw_images(CASCADE_IMAGES, dev))
+    stages = {}
+    for cfg, (arch, _, temp) in ((ycfg, ic.SIMPLE), (gcfg, ic.COMPLEX)):
+        kern, plain, gap = _logits_pair(torch, dev, cfg, params[arch], toks)
+        e = rel_err(kern, plain)
+        check(e < BF16_REL, f"cascade {arch}: last-position logits rel err "
+              f"{e} < {BF16_REL} (max abs {gap})")
+        stages[arch] = (plain, gap, torch.softmax(plain / temp, dim=-1))
+    want_labels, escalations = [], 0
+    (sp, sgap, sprob), (cp, cgap, cprob) = stages.values()
+    for i in range(CASCADE_IMAGES):
+        label, conf = f"class{int(torch.argmax(sprob[i]))}", sprob[i].max()
+        if conf < ic.THRESHOLD:
+            escalations += 1
+            if cprob[i].max() > conf:
+                label = f"class{int(torch.argmax(cprob[i]))}"
+        want_labels.append(label)
+    for per, r in runs.items():
+        ties = 0
+        for i, (got, want_label) in enumerate(zip(r["labels"], want_labels)):
+            if got == want_label:
+                continue
+            cls = int(got[len("class"):])
+            tie = any(cls < p.shape[-1] and _near_tie(
+                p[i], int(torch.argmax(p[i])), cls, gap)
+                for p, gap in ((sp, sgap), (cp, cgap)))
+            if not tie:
+                raise SmokeFailure(f"cascade, {per} a request, image {i}: "
+                                   f"{got} != the plain path's {want_label}")
+            ties += 1
+        check(True, f"cascade, {per} image(s) a request: labels "
+              f"{r['labels']} == the plain path's {want_labels} "
+              f"({ties} near ties); {escalations} of {CASCADE_IMAGES} "
+              f"escalated on the plain path; confident answers "
+              f"{r['escalated']}; median {r['median_ms']} ms a request")
+    return by_heads[CASCADE_IMAGES][(B, gcfg.num_heads, gcfg.num_kv_heads)]
+
+
+def _part_roofline(torch, dev, model, params, steady_s):
+    """The roofline of phase 4's steady yi-9b cascade (4 x 256 prefill,
+    8 decode steps over 1024 slots): ``flops.estimate`` summed over its
+    calls (the reference's implementation count), its lower bound and MFU
+    beside the measured steady call; and ``from_counted``'s FLOPs of one
+    prefill (the plain path under a fake mode: nothing allocated) beside
+    ``estimate``'s.  Fails if a share exceeds 1."""
+    from repro_torch.configs import InputShape
+    from repro_torch.models import build_model
+    from repro_torch.roofline import analysis, flops, hw
+
+    cfg = model.cfg
+    pre = flops.estimate(cfg, InputShape("cascade_prefill", SEQ, PROMPTS,
+                                         "prefill"), chips=1, mp=1)
+    dec = flops.estimate(cfg, InputShape("cascade_decode", CACHE, PROMPTS,
+                                         "decode"), chips=1, mp=1)
+    r = analysis.Roofline(
+        flops=pre.step_flops + STEPS * dec.step_flops,
+        hbm_bytes=pre.hbm_bytes_per_chip + STEPS * dec.hbm_bytes_per_chip,
+        coll_bytes=0.0, model_flops=pre.model_flops
+        + STEPS * dec.model_flops, chips=1)
+    share = r.step_time_lower_bound / steady_s
+    mfu = r.model_flops / (steady_s * hw.PEAK_FLOPS_BF16)
+    print("roofline: " + json.dumps({
+        "cell": f"{cfg.name} cascade {PROMPTS} x {SEQ} + {STEPS} decode "
+                f"steps over {CACHE} slots", **r.to_dict(),
+        "step_time_lower_bound_s": r.step_time_lower_bound,
+        "measured_steady_s": steady_s, "bound_share": share, "mfu": mfu}),
+        flush=True)
+    check(0 < share <= 1.0 and 0 < mfu <= 1.0,
+          f"roofline: bound {r.step_time_lower_bound * 1e3} ms "
+          f"({r.bottleneck}) is {share} of the measured steady "
+          f"{steady_s * 1e3} ms; MFU {mfu}")
+    plain = build_model(dataclasses.replace(cfg, use_kernels=False),
+                        device=dev)
+    toks = torch.zeros((PROMPTS, SEQ), dtype=torch.int32, device=dev)
+    before = torch.cuda.memory_allocated(dev)
+    counted = analysis.from_counted(
+        lambda t: plain.prefill(params, {"tokens": t}, CACHE), toks,
+        model_flops=pre.model_flops, chips=1)
+    ratio = counted.flops / pre.fwd_flops
+    print(f"  from_counted, one prefill: {counted.flops} FLOPs ("
+          f"{ratio} of estimate's fwd_flops {pre.fwd_flops}), "
+          f"{counted.hbm_bytes} bytes (estimate {pre.hbm_bytes_per_chip}), "
+          f"bound {counted.step_time_lower_bound * 1e3} ms "
+          f"({counted.bottleneck}), useful ratio {counted.useful_ratio}",
+          flush=True)
+    check(abs(ratio - 1) < 1e-6 and torch.cuda.memory_allocated(dev)
+          == before, f"from_counted FLOPs of one prefill == estimate's "
+          f"(ratio {ratio}); the count allocated nothing")
+
+
 def kernel_vs_plain(torch, dev, cfg, params, toks):
     """Logits rel err of the kernel path against the plain path on the
     same params and prompts: (prefill, first decode step).  Checks that
@@ -3056,7 +3450,7 @@ def main() -> int:
 
     t0 = _phase("serving", t0)
     _release(torch)
-    yi = served.pop("yi-9b")
+    *yi, steady_s = served.pop("yi-9b")
     one_worker = phase_serving(torch, dev, *yi, smi=smi)
     _release(torch)
 
@@ -3066,6 +3460,11 @@ def main() -> int:
 
     t0 = _phase("plan", t0)
     phase_plan(torch, dev, *yi, served=one_worker, smi=smi)
+    _release(torch)
+
+    t0 = _phase("entry points", t0)
+    for name, n in phase_entry(torch, dev, *yi[:2], steady_s).items():
+        kernels[name]["launches"] = n
     del yi
     _release(torch)
 

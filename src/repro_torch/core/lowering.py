@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import operators as ops
-from repro_torch.core.table import DeviceTable, Table
+from repro_torch.core.table import DeviceTable, Table, value_key
 from repro_torch.device import resolve_device
 from repro_torch.kernels.build import KernelError
 
@@ -632,13 +632,6 @@ class ExecutableCache:
 EXECUTABLE_CACHE = ExecutableCache()
 
 
-def _value_key(v) -> Tuple:
-    if isinstance(v, torch.Tensor):
-        return tuple(v.shape), str(v.dtype)
-    a = np.asarray(v)
-    return a.shape, str(a.dtype)
-
-
 @dataclasses.dataclass
 class BatchedJittedFuse(JittedFuse):
     """A fused chain executed as ONE batched dispatch per batch.
@@ -697,7 +690,7 @@ class BatchedJittedFuse(JittedFuse):
         groups: Dict[Tuple, Tuple[List[int], List[List[Any]]]] = {}
         for i, r in enumerate(rows):
             vals = list(r.values)
-            key = tuple(_value_key(v) for v in vals)
+            key = tuple(value_key(v) for v in vals)
             idxs, cols = groups.setdefault(key, ([], [[] for _ in vals]))
             idxs.append(i)
             for c, v in zip(cols, vals):

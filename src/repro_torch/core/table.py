@@ -163,6 +163,21 @@ def copy_capture_end() -> Optional[Dict[str, int]]:
     return cap
 
 
+def reset_host_copies() -> None:
+    HOST_COPIES["stacks"] = 0
+    HOST_COPIES["gathers"] = 0
+
+
+def value_key(v) -> Tuple[Tuple[int, ...], str]:
+    """(shape, dtype) of one row value: a tensor's own, else those of the
+    numpy array it converts to.  Rows stack into one batch only where
+    every column's keys agree."""
+    if isinstance(v, torch.Tensor):
+        return tuple(v.shape), str(v.dtype)
+    a = np.asarray(v)
+    return a.shape, str(a.dtype)
+
+
 def _stack_column(col: List[Any]) -> torch.Tensor:
     """Stack one column's per-row values (tensors on one device, or
     numpy/scalars) into one tensor, on the values' own device."""
@@ -226,6 +241,29 @@ class DeviceTable:
         note_host_copy("stacks")
         return DeviceTable(schema, columns, n, row_ids, groups,
                            grouping=grouping, mask=None, donatable=True)
+
+    @staticmethod
+    def from_table(t: Table, pad_to: Optional[int] = None, *,
+                   device: DeviceLike = None) -> "DeviceTable":
+        """Stack a shape-uniform host table onto ``device`` (the CUDA
+        device unless named).  Raises ``ValueError`` when rows are ragged
+        or values cannot be stacked — callers fall back to per-row
+        execution."""
+        for r in t.rows:
+            for v in r.values:
+                if not isinstance(v, torch.Tensor) and \
+                        np.asarray(v).dtype.kind not in "biufc":
+                    raise ValueError(f"a {type(v).__name__} value cannot "
+                                     "form a DeviceTable")
+        keys = [[value_key(v) for v in r.values] for r in t.rows]
+        if any(k != keys[0] for k in keys[1:]):
+            raise ValueError("ragged rows cannot form a DeviceTable")
+        host_cols = [[r.values[j] for r in t.rows]
+                     for j in range(len(t.schema))]
+        return DeviceTable.from_columns(
+            t.schema, host_cols, [r.row_id for r in t.rows],
+            [r.group for r in t.rows], pad_to=pad_to, grouping=t.grouping,
+            device=device)
 
     # -- accessors ----------------------------------------------------------
     def __len__(self) -> int:
@@ -307,3 +345,7 @@ class DeviceTable:
         t = Table(self.schema, grouping=self.grouping)
         t.rows = [r for _, r in self.host_rows()]
         return t
+
+
+#: the paper-facing name: a schema-tagged columnar batch (device-resident).
+ColumnBatch = DeviceTable

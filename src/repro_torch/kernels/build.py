@@ -220,10 +220,15 @@ def launch(wrapper, device: torch.device, *args) -> None:
     count(wrapper, "launches")
 
 
-def count(wrapper, counter: str) -> None:
-    """Add one to ``wrapper``'s integer attribute ``counter``."""
+def count(wrapper, counter: str, key=None) -> None:
+    """Add one to ``wrapper``'s integer attribute ``counter``, or, given a
+    ``key``, to that key's entry of the dict attribute ``counter``."""
     with _COUNT_LOCK:            # executor threads launch concurrently
-        setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+        if key is None:
+            setattr(wrapper, counter, getattr(wrapper, counter) + 1)
+        else:
+            counts = getattr(wrapper, counter)
+            counts[key] = counts.get(key, 0) + 1
 
 
 def strides_arg(values: List[int]):

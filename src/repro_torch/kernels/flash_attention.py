@@ -16,9 +16,11 @@ warp and two consumer warpgroups per 128-row query tile, taking turns at
 the tensor cores) and ``"simt"`` (f32, and bf16 at every other head_dim:
 scalar f32 FMAs, empty kv tiles skipped).  ``flash_attention.last_instance``
 names the instance of the last launch; ``flash_attention.windowed_launches``
-counts the launches with a window (gemma2's local layers) apart, so that
-``chip_smoke.py``'s kernels line can give the local and the global rows
-their own launch counts.
+counts the launches with a window (gemma2's local layers) apart, and
+``flash_attention.launches_by_heads`` counts them by ``(B, H, K)``, so
+that ``chip_smoke.py``'s kernels line can give the local and the global
+rows, and each model of a run that serves several, their own launch
+counts.
 
 The least time of the work on an H100 is the larger of its operations
 (about 2 * B * H * S^2 * hd for the causal products, over 989 TFLOP/s)
@@ -126,9 +128,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     flash_attention.last_instance = instance
     if window > 0:
         build.count(flash_attention, "windowed_launches")
+    build.count(flash_attention, "launches_by_heads", (B, H, K))
     return out
 
 
 flash_attention.launches = 0
 flash_attention.windowed_launches = 0
+flash_attention.launches_by_heads = {}
 flash_attention.last_instance = None

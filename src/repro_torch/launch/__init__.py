@@ -1,0 +1,2 @@
+"""Launchers of the port (port of the reference package's ``launch/``):
+``serve`` stands up a served model on the runtime."""

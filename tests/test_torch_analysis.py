@@ -572,10 +572,10 @@ def test_cli_exit_codes(tmp_path, capsys):
 def test_cli_lints_the_port_examples_clean(capsys):
     assert tcli.main([]) == 0
     out = capsys.readouterr().out
-    assert "checked 6 flow(s): 0 error(s)" in out
-    for name in ("auto-optimize", "decode-cascade",
-                 "decode-cascade-competitive", "recommender",
-                 "recommender-unopt", "video"):
+    assert "checked 9 flow(s): 0 error(s)" in out
+    for name in ("auto-optimize", "cascade", "decode-cascade",
+                 "decode-cascade-competitive", "quickstart", "recommender",
+                 "recommender-unopt", "serve-batched", "video"):
         assert f"{name}: clean" in out
 
 

@@ -66,6 +66,10 @@ def _close(got, want, dtype):
     (4, 32, 4, 256, 128, 0, 0.0, True),      # yi-9b prefill shape
     (4, 56, 8, 256, 128, 0, 0.0, True),      # arctic-480b: group 7
     (2, 40, 8, 130, 128, 0, 0.0, True),      # llama4: group 5, ragged S
+    (2, 32, 2, 16, 128, 0, 0.0, True),       # glm4-9b: group 16, S 16
+    (2, 32, 2, 256, 128, 0, 0.0, True),      # glm4-9b: group 16, S 256
+    (2, 48, 1, 16, 128, 0, 0.0, True),       # granite-34b: MQA, S 16
+    (2, 48, 1, 256, 128, 0, 0.0, True),      # granite-34b: MQA, S 256
 ])
 def test_flash_kernel_matches_plain(dev, dtype, B, H, K, S, hd, window,
                                     softcap, causal):
@@ -73,10 +77,13 @@ def test_flash_kernel_matches_plain(dev, dtype, B, H, K, S, hd, window,
     k = _rand((B, K, S, hd), dtype, dev, 1)
     v = _rand((B, K, S, hd), dtype, dev, 2)
     n0 = kops.flash_attention.launches
+    by_heads = kops.flash_attention.launches_by_heads
+    h0 = by_heads.get((B, H, K), 0)
     got = kops.flash_attention(q, k, v, causal=causal, window=window,
                                softcap=softcap)
     torch.cuda.synchronize()
     assert kops.flash_attention.launches == n0 + 1
+    assert by_heads[(B, H, K)] == h0 + 1
     want = flash_attention_plain(q, k, v, causal=causal, window=window,
                                  softcap=softcap)
     _close(got, want, dtype)
@@ -1180,3 +1187,43 @@ def test_int8_expert_dequant_on_card_matches_cpu(dev):
     assert torch.equal(got.cpu(), want)
     assert torch.equal(q["q"].cpu(), moe.quantize_expert_weights(
         {"w_up": w.cpu()})["w_up"]["q"])
+
+
+def test_tiny_serve_flow_on_card_matches_cpu(dev, monkeypatch):
+    """``launch.serve.build_flow`` on the card (tiny f32 yi-9b, kernels
+    on) answers the CPU flow's completions on the same params, and its
+    requests launched both attention kernels."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.core.table import Table
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.runtime import NetModel, Runtime
+
+    monkeypatch.setattr(serve, "get_tiny_config", lambda arch: dataclasses
+                        .replace(get_tiny_config(arch), dtype="float32"))
+    texts = ["request 0", "hello, world", "the quick brown fox", "zz"]
+    params = build_model(serve.serve_config("yi-9b"), device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    on_cpu = torch.utils._pytree.tree_map(lambda t: t.cpu(), params)
+    out, moved = {}, {}
+    for where, p in (("cuda", params), ("cpu", on_cpu)):
+        counts = {k: getattr(kops, k).launches
+                  for k in ("flash_attention", "decode_attention")}
+        flow, _ = serve.build_flow("yi-9b", max_new_tokens=4, device=where,
+                                   params=p)
+        rt = Runtime(n_cpu=2, net=NetModel(scale=0.0), device=where)
+        try:
+            flow.deploy(rt, fusion=True)
+            futs = [flow.execute(Table([("text", str)], [(t,)]))
+                    for t in texts]
+            out[where] = [f.result(timeout=120).to_dicts()[0]["completion"]
+                          for f in futs]
+        finally:
+            rt.stop()
+        moved[where] = {k: getattr(kops, k).launches - n
+                        for k, n in counts.items()}
+    assert out["cuda"] == out["cpu"]
+    L = get_tiny_config("yi-9b").num_layers
+    assert moved == {"cuda": {"flash_attention": L * len(texts),
+                              "decode_attention": L * 4 * len(texts)},
+                     "cpu": {"flash_attention": 0, "decode_attention": 0}}
