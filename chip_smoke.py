@@ -161,7 +161,30 @@ ignored):
    their launches are the ones the wrapper counted at those heads
    (``flash_attention.launches_by_heads``) in the quickstart's run and
    in the cascade's batched run.
-11. The last line: ``{"ok": true, "device": {...}}``; before it a
+11. Training (see ``phase_training``), after phase 9, with nothing of
+   the earlier phases held: yi-9b at full width, 8 of its 48 layers,
+   bf16, AdamW, ``SyntheticLM`` seed 0 at B 4 x S 1024, remat
+   ``nothing``, 30 steps: every loss and grad norm finite, the last 5
+   steps' mean loss below the first 5's, no kernel launched by a train
+   step (the counters read before and after), s/step, tokens/s, peak
+   allocated and the MFU (``estimate``'s ``model_flops`` over the step
+   at the bf16 peak) printed as a ``training:`` JSON line; the eval step
+   on a ``use_kernels=True`` model at the trained params launches flash
+   once a layer and its loss is within rel 0.05 of the plain one; the
+   state is saved under ``build/`` and restored into a fresh template,
+   every leaf equal bit for bit, and one step from each copy gives the
+   same loss within rel 1e-3.  Then the f32 loss and every gradient leaf
+   of full-width yi-9b (2 layers, B 1 x S 256) on the card against the
+   CPU from the same params (loss rel 1e-5, each leaf max |d| <= 1e-3 x
+   max |cpu leaf|, TF32 off); the giant MoEs' optimizer path at yi-9b's
+   width (Adafactor, 4 microbatches accumulated in bf16, global batch 8
+   x 1024, 10 steps; the first step's loss within rel 1e-2 of a one-
+   microbatch step on the same params and batch); whisper-medium at full
+   depth (zero frames, B 4 x S 256, 10 steps); and the entry points
+   ``launch.train --arch yi-9b --tiny --steps 50`` (default device) and
+   ``train_small`` with its defaults (its checkpoint under ``build/``).
+   Every time is printed beside the card's name and power limit.
+12. The last line: ``{"ok": true, "device": {...}}``; before it a
    ``kernels`` JSON line (with gemma2-9b's, arctic-480b's, glm4-9b's and
    granite-34b's attention rows) and the nvidia-smi line.  Each phase
    prints its seconds.
@@ -172,6 +195,7 @@ package is missing.
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -3320,6 +3344,338 @@ def _part_roofline(torch, dev, model, params, steady_s):
           f"(ratio {ratio}); the count allocated nothing")
 
 
+# -- phase 11: training at full width ---------------------------------------
+
+#: yi-9b's training run: depth (of 48), batch, sequence, steps, optimizer
+#: settings; the card-against-CPU gradient (f32): depth, batch, sequence;
+#: the giant MoEs' optimizer path at yi-9b's width (arctic's and llama4's
+#: training fields: Adafactor, bf16 accumulation): global batch, micro-
+#: batches, steps; whisper-medium at full depth: batch, sequence, steps.
+#: The short runs warm up over 2 steps, so their loss can fall in 10.
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 4, 1024, 30
+TRAIN_OPT = {"lr": 3e-4, "warmup_steps": 10}
+SHORT_OPT = {"lr": 3e-4, "warmup_steps": 2}
+GRAD_LAYERS, GRAD_B, GRAD_S = 2, 1, 256
+ACCUM_B, ACCUM_N, ACCUM_STEPS = 8, 4, 10
+WHISPER_B, WHISPER_S, WHISPER_STEPS = 4, 256, 10
+TRAIN_CKPT = os.path.join(HERE, "build", "train_ckpt")
+
+
+def _lm_batches(torch, dev, vocab, B, S, extras=None):
+    """An endless stream of ``SyntheticLM(seed 0)`` batches on ``dev``."""
+    from repro_torch.training.data import DataConfig, SyntheticLM
+
+    src = SyntheticLM(DataConfig(vocab_size=vocab, seq_len=S, batch_size=B,
+                                 seed=SEED))
+    while True:
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in src.batch().items()}
+        batch.update(extras or {})
+        yield batch
+
+
+def _train_steps(torch, dev, step_fn, state, batches, n, smi, what):
+    """Run ``n`` steps; returns (losses, grad norms, seconds a step after
+    the first two, peak GB).  Each step ends in a synchronise; every loss
+    and grad norm must be finite, and no kernel may launch."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_launches()
+    losses, norms, secs = [], [], []
+    for _ in range(n):
+        batch = next(batches)
+        t = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize(dev)
+        secs.append(time.perf_counter() - t)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    launched = _launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    steady = sorted(secs[2:])[len(secs[2:]) // 2] if n > 2 else secs[-1]
+    print(f"  {what}: losses {losses}", flush=True)
+    print(f"  {what}: grad norms {norms}", flush=True)
+    print(f"  {what}: first step {secs[0]:.3f} s, median step after two "
+          f"{steady:.4f} s, peak {peak_gb:.2f} GB ({smi})", flush=True)
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"{what}: every loss and grad norm finite")
+    check(sum(launched.values()) == 0,
+          f"{what}: no kernel launched in the train steps ({launched})")
+    half = min(5, n // 2)
+    first, last = sum(losses[:half]) / half, sum(losses[-half:]) / half
+    check(last < first, f"{what}: the mean loss of the last {half} steps "
+          f"({last:.4f}) is below that of the first {half} ({first:.4f})")
+    return losses, norms, steady, peak_gb
+
+
+def _train_report(cfg, B, S, steady, peak_gb, smi, what):
+    """The ``training:`` line: s/step, tokens/s, peak GB and the MFU of a
+    step (``estimate``'s ``model_flops`` over the step at the bf16 peak)."""
+    from repro_torch.configs import InputShape
+    from repro_torch.roofline import flops, hw
+
+    est = flops.estimate(cfg, InputShape("train", S, B, "train"), chips=1,
+                         mp=1)
+    mfu = est.model_flops / (steady * hw.PEAK_FLOPS_BF16)
+    print("training: " + json.dumps({
+        "cell": what, "params": cfg.param_count(), "batch": B, "seq": S,
+        "s_per_step": steady, "tokens_per_s": B * S / steady,
+        "peak_allocated_gb": peak_gb, "model_flops": est.model_flops,
+        "mfu": mfu, "card": smi}), flush=True)
+    check(0 < mfu <= 1.0, f"{what}: MFU {mfu} in (0, 1]")
+
+
+def _same_bits(torch, a, b):
+    if a.dtype != b.dtype or a.shape != b.shape or a.device != b.device:
+        return False
+    if a.is_floating_point():
+        as_int = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        a, b = a.detach().view(as_int), b.detach().view(as_int)
+    return bool(torch.equal(a, b))
+
+
+def phase_training(torch, dev, smi):
+    """Phase 11 (see the module docstring)."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("yi-9b"), num_layers=TRAIN_LAYERS)
+    _train_yi(torch, dev, cfg, smi)
+    _release(torch)
+    _train_grad_vs_cpu(torch, dev, smi)
+    _release(torch)
+    _train_accum(torch, dev, cfg, smi)
+    _release(torch)
+    _train_whisper(torch, dev, smi)
+    _release(torch)
+    _train_entry_points(torch, dev, smi)
+
+
+def _train_yi(torch, dev, cfg, smi):
+    """yi-9b at full width, 8 layers, bf16, AdamW: 30 steps; the eval
+    step with the kernels on the trained params; the state's checkpoint
+    round trip and one step from each copy."""
+    from repro_torch.models import build_model
+    from repro_torch.training import optim, train_step
+
+    model = build_model(cfg, dev)
+    opt = optim.OptConfig(**TRAIN_OPT)
+    state = train_step.init_train_state(
+        model, torch.Generator(device=dev).manual_seed(SEED), opt)
+    n_params = sum(p.numel() for p in optim.leaves(state["params"]))
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in optim.leaves(state)) / 1e9
+    print(f"  yi-9b, {TRAIN_LAYERS} of 48 layers at full width: "
+          f"{n_params} params, train state {state_gb:.2f} GB (bf16 params,"
+          f" f32 AdamW m and v)", flush=True)
+    step_fn = train_step.make_train_step(model, opt)
+    batches = _lm_batches(torch, dev, cfg.vocab_size, TRAIN_B, TRAIN_S)
+    _, _, steady, peak = _train_steps(torch, dev, step_fn, state, batches,
+                                      TRAIN_STEPS, smi, "yi-9b AdamW")
+    _train_report(cfg, TRAIN_B, TRAIN_S, steady, peak, smi,
+                  f"yi-9b {TRAIN_LAYERS}L AdamW bf16 remat=nothing")
+
+    # the eval step: the kernel path (no grad) against the plain path
+    batch = next(batches)
+    kern = build_model(dataclasses.replace(cfg, use_kernels=True), dev)
+    _zero_launches()
+    got = train_step.make_eval_step(kern)(state["params"], batch)
+    torch.cuda.synchronize(dev)
+    launched = _launches()
+    want = train_step.make_eval_step(model)(state["params"], batch)
+    rel = abs(float(got["loss"]) - float(want["loss"])) / abs(
+        float(want["loss"]))
+    check(launched == {**{k: 0 for k in KERNELS},
+                       "flash_attention": TRAIN_LAYERS},
+          f"eval step with use_kernels=True launched flash once a layer "
+          f"({launched})")
+    check(rel <= BF16_REL, f"eval loss on the kernel path "
+          f"{float(got['loss'])} vs plain {float(want['loss'])}: rel {rel}"
+          f" <= {BF16_REL}")
+    _train_checkpoint(torch, dev, step_fn, state, batches, smi)
+
+
+def _train_checkpoint(torch, dev, step_fn, state, batches, smi):
+    """Save the full-width state under ``build/``, restore it into a fresh
+    template (every leaf equal, bit for bit), then one step from the live
+    state and one from the restored copy: the same loss within 1e-3."""
+    import shutil
+
+    from repro_torch.training import checkpoint, optim, train_step
+
+    nbytes = sum(t.numel() * t.element_size() for t in optim.leaves(state))
+    os.makedirs(TRAIN_CKPT, exist_ok=True)
+    free = shutil.disk_usage(TRAIN_CKPT).free
+    check(free > 1.1 * nbytes, f"checkpoint: {free / 1e9:.1f} GB free for "
+          f"a {nbytes / 1e9:.2f} GB state")
+    try:
+        t = time.perf_counter()
+        path = checkpoint.save(TRAIN_CKPT, state, int(state["opt"]["step"]))
+        save_s = time.perf_counter() - t
+        template = optim.tree_map(torch.empty_like, state)
+        t = time.perf_counter()
+        restored = checkpoint.restore(TRAIN_CKPT, template)
+        torch.cuda.synchronize(dev)
+        restore_s = time.perf_counter() - t
+        size = os.path.getsize(path)
+    finally:
+        shutil.rmtree(TRAIN_CKPT)
+    del template
+    print(f"  checkpoint: {size / 1e9:.2f} GB written in {save_s:.1f} s, "
+          f"restored in {restore_s:.1f} s ({smi})", flush=True)
+    pairs = list(zip(optim.leaves(state), optim.leaves(restored)))
+    check(all(_same_bits(torch, a, b) for a, b in pairs),
+          f"checkpoint: all {len(pairs)} leaves of the restored state equal"
+          " the saved ones, bit for bit")
+    del pairs
+    batch = next(batches)
+    _, live = step_fn(state, batch)
+    live_loss = float(live["loss"])
+    train_step.trainable(restored["params"])
+    _, again = step_fn(restored, batch)
+    rel = abs(float(again["loss"]) - live_loss) / abs(live_loss)
+    check(rel <= 1e-3, f"checkpoint: a step from the restored state "
+          f"{float(again['loss'])} vs from the live state {live_loss}: "
+          f"rel {rel} <= 1e-3")
+
+
+def _train_grad_vs_cpu(torch, dev, smi):
+    """The same port code in f32 at full width (2 layers, B 1 x S 256):
+    loss and every gradient leaf on the card against the CPU, from params
+    drawn once on the CPU and copied to the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training import optim, train_step
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "f32 products on the card run without TF32")
+    cfg = dataclasses.replace(get_config("yi-9b"), num_layers=GRAD_LAYERS,
+                              dtype="float32")
+    cpu_model = build_model(cfg, "cpu")
+    cpu_params = train_step.trainable(
+        cpu_model.init(torch.Generator().manual_seed(SEED)))
+    dev_params = train_step.trainable(optim.tree_map(
+        lambda t: t.detach().to(dev), cpu_params))
+    batch = next(_lm_batches(torch, "cpu", cfg.vocab_size, GRAD_B, GRAD_S))
+    t = time.perf_counter()
+    d_loss, _, d_grads = train_step.value_and_grad(
+        build_model(cfg, dev), dev_params,
+        {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize(dev)
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    c_loss, _, c_grads = train_step.value_and_grad(cpu_model, cpu_params,
+                                                   batch)
+    cpu_s = time.perf_counter() - t
+    rel = abs(float(d_loss) - float(c_loss)) / abs(float(c_loss))
+    ratios = [float((a.cpu() - b).abs().max()) / float(b.abs().max())
+              for a, b in zip(optim.leaves(d_grads), optim.leaves(c_grads))]
+    print(f"  grad on the card vs the CPU: {cfg.param_count()} params, "
+          f"card {card_s:.2f} s, CPU {cpu_s:.2f} s ({smi}); worst leaf "
+          f"max|d| / max|cpu| {max(ratios):.3e}", flush=True)
+    check(rel <= 1e-5, f"f32 loss on the card {float(d_loss)} vs the CPU "
+          f"{float(c_loss)}: rel {rel} <= 1e-5")
+    check(max(ratios) <= 1e-3, f"every one of {len(ratios)} gradient "
+          f"leaves within 1e-3 of its CPU leaf's max (worst "
+          f"{max(ratios):.3e})")
+
+
+def _train_accum(torch, dev, cfg, smi):
+    """The giant MoEs' optimizer path (Adafactor, 4 microbatches
+    accumulated in bf16) at yi-9b's width: the first step's loss against a
+    one-microbatch step on the same params and batch, then 10 steps."""
+    from repro_torch.models import build_model
+    from repro_torch.training import optim, train_step
+
+    cfg = dataclasses.replace(cfg, optimizer="adafactor", grad_accum=ACCUM_N,
+                              accum_dtype="bfloat16")
+    opt = optim.OptConfig(name="adafactor", **SHORT_OPT)
+    model = build_model(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    batches = _lm_batches(torch, dev, cfg.vocab_size, ACCUM_B, TRAIN_S)
+    first = next(batches)
+    one = build_model(dataclasses.replace(cfg, grad_accum=1), dev)
+    state1 = train_step.init_train_state(
+        one, opt_cfg=opt, params=optim.tree_map(torch.clone, params))
+    _, m1 = train_step.make_train_step(one, opt)(state1, first)
+    loss1 = float(m1["loss"])
+    del state1
+    _release(torch)
+    state = train_step.init_train_state(model, opt_cfg=opt, params=params)
+
+    def replay():
+        yield first
+        yield from batches
+
+    losses, _, steady, peak = _train_steps(
+        torch, dev, train_step.make_train_step(model, opt), state, replay(),
+        ACCUM_STEPS, smi, f"yi-9b Adafactor, {ACCUM_N} microbatches in bf16")
+    rel = abs(losses[0] - loss1) / abs(loss1)
+    check(rel <= 1e-2, f"accumulated first-step loss {losses[0]} vs one "
+          f"microbatch {loss1}: rel {rel} <= 1e-2")
+    _train_report(cfg, ACCUM_B, TRAIN_S, steady, peak, smi,
+                  f"yi-9b {TRAIN_LAYERS}L Adafactor grad_accum={ACCUM_N} "
+                  "bf16 accumulation")
+
+
+def _train_whisper(torch, dev, smi):
+    """whisper-medium at full depth (24 + 24 layers), AdamW, zero frames
+    as in ``launch/train.py``: 10 steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.interop import torch_dtype
+    from repro_torch.models import build_model
+    from repro_torch.training import optim, train_step
+
+    cfg = get_config("whisper-medium")
+    model = build_model(cfg, dev)
+    opt = optim.OptConfig(**SHORT_OPT)
+    state = train_step.init_train_state(
+        model, torch.Generator(device=dev).manual_seed(SEED), opt)
+    frames = torch.zeros((WHISPER_B, cfg.encoder_seq, cfg.d_model),
+                         dtype=torch_dtype(cfg.dtype), device=dev)
+    batches = _lm_batches(torch, dev, cfg.vocab_size, WHISPER_B, WHISPER_S,
+                       {"frames": frames})
+    _, _, steady, peak = _train_steps(
+        torch, dev, train_step.make_train_step(model, opt), state, batches,
+        WHISPER_STEPS, smi, "whisper-medium AdamW")
+    _train_report(cfg, WHISPER_B, WHISPER_S, steady, peak, smi,
+                  "whisper-medium 24+24L AdamW bf16, zero frames")
+
+
+def _train_entry_points(torch, dev, smi):
+    """``python -m repro_torch.launch.train --arch yi-9b --tiny --steps 50``
+    (in this process, default device) and ``train_small`` with its
+    defaults (its checkpoint under ``build/``), which asserts learning and
+    the round trip."""
+    import contextlib
+    import io
+
+    from repro_torch.examples import train_small
+    from repro_torch.launch import train as launch_train
+
+    t = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        losses = launch_train.main(["--arch", "yi-9b", "--tiny", "--steps",
+                                    "50"])
+    print(f"  launch.train --arch yi-9b --tiny --steps 50: "
+          f"{out.getvalue().strip().splitlines()[-1]} in "
+          f"{time.perf_counter() - t:.1f} s ({smi})", flush=True)
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          "launch.train: finite losses, the last below the first")
+    t = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        losses = train_small.main(["--ckpt-dir", os.path.join(
+            HERE, "build", "train_small")])
+    print("  train_small: " + " | ".join(
+        out.getvalue().strip().splitlines()[-2:])
+        + f" in {time.perf_counter() - t:.1f} s ({smi})", flush=True)
+    check(losses[-1] < losses[0] - 1.0, "train_small learned (its own "
+          "assertions: the loss fell by more than 1.0, the checkpoint "
+          "round-tripped)")
+
+
 def kernel_vs_plain(torch, dev, cfg, params, toks):
     """Logits rel err of the kernel path against the plain path on the
     same params and prompts: (prefill, first decode step).  Checks that
@@ -3481,6 +3837,11 @@ def main() -> int:
             for name, n in launches.items():
                 if n:
                     kernels[f"{name}[{arch}]"]["launches"] = n
+
+    t0 = _phase("training", t0)
+    _release(torch)
+    phase_training(torch, dev, smi)
+    _release(torch)
     _phase(None, t0)
     print(f"  chip_smoke total: {time.perf_counter() - T_START:.1f} s",
           flush=True)

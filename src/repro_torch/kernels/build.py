@@ -9,7 +9,11 @@ one ``nvcc`` process each.
 
 A failed build, a missing ``nvcc`` and a refused launch all raise
 :class:`KernelError`: the port never falls back to a plain version for a
-tensor that lies on the card.
+tensor that lies on the card.  Nor does a call that autograd would have
+to differentiate: the kernels have no backward (the reference's Pallas
+kernels have none either), so a wrapper refuses CUDA inputs that require
+grad while grad mode is on (:func:`refuse_autograd`), where a launch
+would return a tensor cut off from the graph.
 """
 from __future__ import annotations
 
@@ -200,7 +204,22 @@ def card_of(name: str, tensors) -> Optional[torch.device]:
         raise KernelError(
             f"{name}: inputs on {sorted(map(str, devices))}; needs all on "
             "one CUDA device (or all on the CPU)")
+    refuse_autograd(name, tensors)
     return device
+
+
+def refuse_autograd(name: str, tensors) -> None:
+    """Raise :class:`KernelError` when grad mode is on and any of
+    ``tensors`` requires grad: the kernel has no backward, and its output
+    would silently carry no gradient to the inputs.  :func:`card_of`
+    calls it for CUDA inputs; the CPU's plain versions are
+    differentiable and never reach it."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise KernelError(
+            f"{name}: an input requires grad, and the port has no backward "
+            "kernel (the reference package has none either); train the "
+            "model with use_kernels=False, and run a kernel under "
+            "torch.no_grad()")
 
 
 def launch(wrapper, device: torch.device, *args) -> None:

@@ -6,17 +6,21 @@ Plain functions over tensors, numerically the reference's: rmsnorm in the
 per-head group norm (population variance, eps 64e-5), half-split (not
 interleaved) RoPE, KV-chunked online-softmax attention with masked logits
 at -1e30, single-token decode attention over a ring cache, and the int8
-KV-cache quantization of ``kv_quant``.  The CUDA kernels in
+KV-cache quantization of ``kv_quant``, and per-block rematerialisation
+(``remat_block``) for the training forward.  The CUDA kernels in
 :mod:`repro_torch.kernels` replace the two attention functions when
 ``use_kernels`` is set.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 
 # ---------------------------------------------------------------------------
@@ -64,6 +68,40 @@ def groupnorm_heads(x, scale, bias, num_heads: int, eps: float = 64e-5):
     var = torch.var(xs, dim=-1, keepdim=True, correction=0)
     xs = ((xs - mu) * torch.rsqrt(var + eps)).reshape(b, t, d)
     return (xs * scale.float() + bias.float()).to(x.dtype)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy="dots"``: keep the
+    outputs of matrix products without batch dims (``aten.mm`` and
+    ``aten.addmm``: ``x @ W`` on a [B, S, D] ``x`` folds to one), recompute
+    the rest (JAX's ``checkpoint_dots_with_no_batch_dims``)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_block(fn, policy: str = "nothing"):
+    """``fn`` under per-block rematerialisation, as the reference's
+    ``jax.checkpoint(block_fn, policy=...)``: ``"nothing"`` saves only the
+    block's inputs and recomputes the whole block in the backward pass,
+    ``"dots"`` also saves the matrix products' outputs
+    (:func:`_save_products`), ``"everything"`` saves all (``fn`` itself).
+    Non-reentrant checkpointing, so ``fn`` may take and return nested
+    structures."""
+    if policy == "everything":
+        return fn
+    if policy not in ("nothing", "dots"):
+        raise ValueError(f"unknown remat_policy {policy!r} (nothing | dots "
+                         "| everything)")
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_products)
+
+    def wrapped(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
 
 
 def layer_slice(tree, j: int):

@@ -4,12 +4,18 @@
 and hybrid (recurrentgemma)).
 
 ``build_model(cfg, device=None, long_context=False)`` returns a
-:class:`Model` with ``init(generator)``, ``logits``, ``prefill``,
-``init_cache``, ``decode_step`` and ``input_specs(shape)``.
+:class:`Model` with ``init(generator)``, ``loss`` (the training loss,
+differentiable), ``logits``, ``prefill``, ``init_cache``,
+``decode_step`` and ``input_specs(shape)``.
 ``model_stage_op(model, params, stage)`` wraps one serving stage as a
 ``ModelOp`` for the dataflow.  ``batch`` is a dict: {"tokens",
-"media"? (vlm stub patch embeddings [B, M, D]), "frames"? (audio stub
-frame embeddings [B, encoder_seq, D])}.
+"labels"? (training), "media"? (vlm stub patch embeddings [B, M, D]),
+"frames"? (audio stub frame embeddings [B, encoder_seq, D])}.
+
+The serving entry points (``logits``, ``prefill`` and the families'
+``decode_step``) run under ``torch.no_grad`` and record no graph,
+whatever the params' ``requires_grad``; ``loss`` runs in the caller's
+grad mode.
 
 Row-wise column contracts (per table row), as in the reference:
 
@@ -62,6 +68,19 @@ _FAMILY_MODULES = {"dense": transformer, "moe": transformer,
 _LONG_CONTEXT = ("dense", "moe", "vlm")
 
 
+def cross_entropy(logits, labels, *, ignore_id: int = -1):
+    """Mean next-token loss over the labels that are not ``ignore_id``.
+    logits: [B, S, V] (f32); labels: [B, S] int."""
+    logz = torch.logsumexp(logits, dim=-1)
+    mask = labels != ignore_id
+    # an ignored label gathers row 0; the mask drops it
+    gold = torch.gather(logits, -1, torch.where(mask, labels, 0).long()[
+        ..., None])[..., 0]
+    maskf = mask.float()
+    nll = (logz - gold) * maskf
+    return nll.sum() / torch.clamp_min(maskf.sum(), 1.0)
+
+
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
@@ -89,12 +108,33 @@ class Model:
         return self.mod.init_params(self.cfg, generator, self.device,
                                     **self._kw())
 
-    # -- forward -------------------------------------------------------------
+    # -- training loss --------------------------------------------------------
+    def loss(self, params, batch, *, remat: bool = True):
+        """(loss, {"ce", "aux"}): ``ce + router_aux_loss_coef * aux``,
+        where ``aux`` is the MoE layers' summed load-balance loss (zero
+        for the other families).  ``labels`` default to the tokens
+        shifted left, with -1 (ignored) at the end; ``remat`` checkpoints
+        each block under ``cfg.remat_policy``."""
+        logits, aux = self.mod.forward(params, batch["tokens"], self.cfg,
+                                       remat=remat, with_aux=True,
+                                       **self._fwd_kw(batch))
+        labels = batch.get("labels")
+        if labels is None:
+            tokens = batch["tokens"]
+            labels = torch.cat([tokens[:, 1:],
+                                torch.full_like(tokens[:, :1], -1)], dim=1)
+        ce = cross_entropy(logits, labels)
+        total = ce + self.cfg.router_aux_loss_coef * aux
+        return total, {"ce": ce, "aux": aux}
+
+    # -- serving -------------------------------------------------------------
+    @torch.no_grad()
     def logits(self, params, batch):
+        """Logits [B, S, V] alone (the serving ``logits`` stage)."""
         return self.mod.forward(params, batch["tokens"], self.cfg,
                                 **self._fwd_kw(batch))
 
-    # -- serving -------------------------------------------------------------
+    @torch.no_grad()
     def prefill(self, params, batch, cache_len: int):
         logits, cache = self.mod.forward(params, batch["tokens"], self.cfg,
                                          build_cache=True,

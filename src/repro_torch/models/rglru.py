@@ -267,25 +267,36 @@ def _apply_layer_step(x, lp, kind: str, cfg, pos, cache):
     return x + _mlp(h, lp["mlp"])
 
 
-@torch.no_grad()
 def forward(params, tokens, cfg: ModelConfig, *, build_cache: bool = False,
-            cache_len: Optional[int] = None, **_unused):
+            cache_len: Optional[int] = None, remat: bool = False,
+            with_aux: bool = False, **_unused):
     """tokens: [B, S] -> logits [B, S, V]; with ``build_cache`` also the
-    decode cache ``{"blocks": {...}, "rest": {...}}``."""
+    decode cache ``{"blocks": {...}, "rest": {...}}``, and with
+    ``with_aux`` a zero f32 aux loss (the family has no router).
+    ``remat`` checkpoints each block of the pattern (the reference's
+    plain ``jax.checkpoint``; the remainder layers are not).
+    Differentiable: the caller picks grad mode."""
     pattern, n_blocks, rest = layout(cfg)
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     x = layers.embed_lookup(params["embed"], tokens,
                             scale_by_dim=cfg.embedding_scale)
+
+    def block_fn(x, bp):
+        caches = {}
+        for i, kind in enumerate(pattern):
+            x, caches[str(i)] = _apply_layer_full(
+                x, bp[str(i)], kind, cfg, positions, build_cache, cache_len)
+        return x, caches
+
+    body = layers.remat_block(block_fn) if remat else block_fn
     block_caches: Dict[str, Dict[str, list]] = {
         str(i): {} for i in range(len(pattern))}
     for j in range(n_blocks):
-        bp = layers.layer_slice(params["blocks"], j)
-        for i, kind in enumerate(pattern):
-            x, c = _apply_layer_full(x, bp[str(i)], kind, cfg, positions,
-                                     build_cache, cache_len)
-            for name, leaf in c.items():
-                block_caches[str(i)].setdefault(name, []).append(leaf)
+        x, c = body(x, layers.layer_slice(params["blocks"], j))
+        for i, leaves in c.items():
+            for name, leaf in leaves.items():
+                block_caches[i].setdefault(name, []).append(leaf)
     rest_caches = {}
     for j, kind in enumerate(rest):
         x, c = _apply_layer_full(x, params["rest"][str(j)], kind, cfg,
@@ -294,11 +305,14 @@ def forward(params, tokens, cfg: ModelConfig, *, build_cache: bool = False,
     x = layers.apply_norm(x, params["final_norm"], cfg.norm)
     logits = layers.unembed(x, params["embed"],
                             softcap=cfg.final_logit_softcap)
+    out = (logits,)
     if build_cache:
         blocks = {i: {n: torch.stack(v) for n, v in c.items()}
                   for i, c in block_caches.items()}
-        return logits, {"blocks": blocks, "rest": rest_caches}
-    return logits
+        out += ({"blocks": blocks, "rest": rest_caches},)
+    if with_aux:
+        out += (torch.zeros((), dtype=torch.float32, device=x.device),)
+    return out if len(out) > 1 else logits
 
 
 def _empty_layer_cache(cfg: ModelConfig, kind: str, batch: int,

@@ -153,18 +153,20 @@ def _shift(x, prev):
     return torch.cat([prev[:, None], x[:, :-1]], dim=1)
 
 
-@torch.no_grad()
 def forward(params, tokens, cfg: ModelConfig, *, build_cache: bool = False,
-            cache_len: Optional[int] = None, **_unused):
+            cache_len: Optional[int] = None, remat: bool = False,
+            with_aux: bool = False, **_unused):
     """tokens: [B, T] -> logits [B, T, V]; with ``build_cache`` also the
-    decode cache {S, tm_shift, cm_shift} stacked over layers."""
+    decode cache {S, tm_shift, cm_shift} stacked over layers, and with
+    ``with_aux`` a zero f32 aux loss (the family has no router).
+    ``remat`` checkpoints each layer (the reference's plain
+    ``jax.checkpoint``).  Differentiable: the caller picks grad mode."""
     B, T = tokens.shape
     H, hd = cfg.num_rwkv_heads, cfg.rwkv_head_dim
     dtype = torch_dtype(cfg.dtype)
     x = layers.embed_lookup(params["embed"], tokens)
-    caches: Dict[str, list] = {"S": [], "tm_shift": [], "cm_shift": []}
-    for j in range(cfg.num_layers):
-        lp = layers.layer_slice(params["blocks"], j)
+
+    def block_fn(x, lp):
         zeros_shift = torch.zeros((B, x.shape[-1]), dtype=x.dtype,
                                   device=x.device)
         S0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
@@ -175,15 +177,24 @@ def forward(params, tokens, cfg: ModelConfig, *, build_cache: bool = False,
         x = x + tm_out
         h2 = layers.layernorm(x, lp["ln2"]["scale"], lp["ln2"]["bias"])
         x = (x + _channel_mix(h2, _shift(h2, zeros_shift), lp)).to(dtype)
-        if build_cache:
-            caches["S"].append(S)
-            caches["tm_shift"].append(h1[:, -1])
-            caches["cm_shift"].append(h2[:, -1])
+        cache_out = ({"S": S, "tm_shift": h1[:, -1], "cm_shift": h2[:, -1]}
+                     if build_cache else {})
+        return x, cache_out
+
+    body = layers.remat_block(block_fn) if remat else block_fn
+    caches: Dict[str, list] = {"S": [], "tm_shift": [], "cm_shift": []}
+    for j in range(cfg.num_layers):
+        x, cache_out = body(x, layers.layer_slice(params["blocks"], j))
+        for name, t in cache_out.items():
+            caches[name].append(t)
     x = layers.apply_norm(x, params["final_norm"], cfg.norm)
     logits = layers.unembed(x, params["embed"])
+    out = (logits,)
     if build_cache:
-        return logits, {k: torch.stack(v) for k, v in caches.items()}
-    return logits
+        out += ({k: torch.stack(v) for k, v in caches.items()},)
+    if with_aux:
+        out += (torch.zeros((), dtype=torch.float32, device=x.device),)
+    return out if len(out) > 1 else logits
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,

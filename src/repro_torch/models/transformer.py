@@ -32,6 +32,9 @@ same, and the port keeps it for parity (ROADMAP.md §3).
 ``cfg.use_kernels`` selects the CUDA kernels at the two self-attention
 sites (the prefill's flash attention and the decode step's decode
 attention); on CPU tensors the kernel wrappers run their plain versions.
+The kernels have no backward, as the reference's have none: training
+differentiates the plain composition (``use_kernels=False``), and a
+kernel wrapper refuses CUDA inputs that require grad.
 Cross attention stays plain PyTorch, as in the reference, which calls no
 Pallas kernel there, and so does the MoE layer, whose products the
 reference computes outside any Pallas kernel.
@@ -292,43 +295,47 @@ def media_kv_from_embeddings(media, cp, cfg: ModelConfig):
 
 
 def _layer_ffn(x, lp, spec: LayerSpec, cfg: ModelConfig):
-    """The FFN part: the MLP, or the MoE layer plus its ``aux_mlp``.  The
-    router's load-balance loss, which only training reads, is dropped."""
+    """The FFN part: the MLP, or the MoE layer plus its ``aux_mlp``.
+    Returns (y, aux): the router's load-balance loss (None for a dense
+    layer), which only the training loss reads."""
     if spec.is_moe:
-        y, _aux = moe_lib.moe_apply(x, lp["moe"], cfg)
+        y, aux = moe_lib.moe_apply(x, lp["moe"], cfg)
         if spec.aux_mlp:
             y = y + layers.mlp_apply(x, lp["aux_mlp"], gated=cfg.gated_mlp,
                                      act=cfg.act)
-        return y
-    return layers.mlp_apply(x, lp["mlp"], gated=cfg.gated_mlp, act=cfg.act)
+        return y, aux
+    return (layers.mlp_apply(x, lp["mlp"], gated=cfg.gated_mlp, act=cfg.act),
+            None)
 
 
 # ---------------------------------------------------------------------------
-# full-sequence forward (prefill)
+# full-sequence forward (train / prefill)
 # ---------------------------------------------------------------------------
-@torch.no_grad()
 def forward(params, tokens, cfg: ModelConfig, *, media=None,
             build_cache: bool = False, cache_len: Optional[int] = None,
-            long_context: bool = False, chunk: int = 1024):
+            long_context: bool = False, chunk: int = 1024,
+            remat: bool = False, with_aux: bool = False):
     """tokens: [B, S] -> logits [B, S, V].  If ``build_cache`` also returns
     the decode cache (prefill) with ring semantics: a layer of window W
     keeps the last W positions when S >= W, else pads with -1 slots.
     ``media`` [B, M, D] feeds the cross layers (vlm); without it they are
     skipped and the cache has no ``ck``/``cv`` leaves, as in the
-    reference."""
+    reference.  ``with_aux`` appends the MoE layers' summed load-balance
+    loss (f32 scalar) to the result.  ``remat`` checkpoints each block
+    under ``cfg.remat_policy`` (:func:`layers.remat_block`).
+
+    Differentiable: the caller picks grad mode (the serving entry points
+    run under ``torch.no_grad``; the training loss does not)."""
     specs, n_blocks = block_layout(cfg, long_context=long_context)
     B, S = tokens.shape
     dev = tokens.device
     positions = torch.arange(S, dtype=torch.int32, device=dev)
     x = layers.embed_lookup(params["embed"], tokens,
                             scale_by_dim=cfg.embedding_scale)
-    caches: Dict[str, List[torch.Tensor]] = {}
 
-    def keep(name, t):
-        caches.setdefault(name, []).append(t)
-
-    for j in range(n_blocks):
-        blk = layers.layer_slice(params["blocks"], j)
+    def block_fn(x, blk):
+        auxes: List[torch.Tensor] = []
+        cache_out: Dict[str, torch.Tensor] = {}
         for i, spec in enumerate(specs):
             lp = blk[str(i)]
             h = layers.apply_norm(x, lp["ln1"], cfg.norm)
@@ -342,43 +349,65 @@ def forward(params, tokens, cfg: ModelConfig, *, media=None,
                 mkv = media_kv_from_embeddings(media, lp["cross"], cfg)
                 x = x + _cross_attention(x, lp["cross"], cfg, mkv)
                 if build_cache:
-                    keep(f"ck{i}", mkv[0])
-                    keep(f"cv{i}", mkv[1])
+                    cache_out[f"ck{i}"], cache_out[f"cv{i}"] = mkv
             h = layers.apply_norm(x, lp["ln2"], cfg.norm)
-            ffn_out = _layer_ffn(h, lp, spec, cfg)
+            ffn_out, aux = _layer_ffn(h, lp, spec, cfg)
             if cfg.post_norms:
                 ffn_out = layers.apply_norm(ffn_out, lp["post_ln2"], cfg.norm)
             x = x + ffn_out
+            if aux is not None:
+                auxes.append(aux)
             if build_cache:
-                W = spec.window if spec.window else (cache_len or S)
-                W = min(W, cache_len or S)
-                if S >= W:
-                    ks, vs = k[:, S - W:], v[:, S - W:]
-                    ps = positions[S - W:].expand(B, W)
-                else:
-                    pad = W - S
-                    ks = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-                    vs = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-                    ps = torch.cat([positions, torch.full(
-                        (pad,), -1, dtype=torch.int32, device=dev)]
-                    ).expand(B, W)
-                if cfg.kv_quant:
-                    kq, ksc = layers.kv_quantize(ks)
-                    vq, vsc = layers.kv_quantize(vs)
-                    keep(f"k{i}", kq)
-                    keep(f"ks{i}", ksc)
-                    keep(f"v{i}", vq)
-                    keep(f"vs{i}", vsc)
-                else:
-                    keep(f"k{i}", ks)
-                    keep(f"v{i}", vs)
-                keep(f"pos{i}", ps)
+                cache_out.update(_ring_slots(i, k, v, positions, spec, cfg,
+                                             cache_len))
+        return x, cache_out, auxes
+
+    body = (layers.remat_block(block_fn, cfg.remat_policy) if remat
+            else block_fn)
+    caches: Dict[str, List[torch.Tensor]] = {}
+    auxes: List[torch.Tensor] = []
+    for j in range(n_blocks):
+        x, cache_out, blk_aux = body(x, layers.layer_slice(params["blocks"],
+                                                           j))
+        auxes += blk_aux
+        for name, t in cache_out.items():
+            caches.setdefault(name, []).append(t)
     x = layers.apply_norm(x, params["final_norm"], cfg.norm)
     logits = layers.unembed(x, params["embed"],
                             softcap=cfg.final_logit_softcap)
+    out = (logits,)
     if build_cache:
-        return logits, {k: torch.stack(v) for k, v in caches.items()}
-    return logits
+        out += ({k: torch.stack(v) for k, v in caches.items()},)
+    if with_aux:
+        out += (torch.stack(auxes).sum() if auxes else torch.zeros(
+            (), dtype=torch.float32, device=dev),)
+    return out if len(out) > 1 else logits
+
+
+def _ring_slots(i: int, k, v, positions, spec: LayerSpec, cfg: ModelConfig,
+                cache_len: Optional[int]) -> Dict[str, torch.Tensor]:
+    """Layer ``i``'s prefill cache leaves: a layer of window W keeps the
+    last W positions when S >= W, else pads with -1 slots (int8 values
+    and f32 scales under ``kv_quant``)."""
+    B, S = k.shape[0], k.shape[1]
+    W = spec.window if spec.window else (cache_len or S)
+    W = min(W, cache_len or S)
+    if S >= W:
+        ks, vs = k[:, S - W:], v[:, S - W:]
+        ps = positions[S - W:].expand(B, W)
+    else:
+        pad = W - S
+        ks = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        vs = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        ps = torch.cat([positions, torch.full(
+            (pad,), -1, dtype=torch.int32, device=k.device)]).expand(B, W)
+    out = {f"pos{i}": ps}
+    if cfg.kv_quant:
+        out[f"k{i}"], out[f"ks{i}"] = layers.kv_quantize(ks)
+        out[f"v{i}"], out[f"vs{i}"] = layers.kv_quantize(vs)
+    else:
+        out[f"k{i}"], out[f"v{i}"] = ks, vs
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -456,7 +485,7 @@ def decode_step(params, tokens, pos, cache, cfg: ModelConfig, *,
                 mkv = (new_cache[f"ck{i}"][j], new_cache[f"cv{i}"][j])
                 x = x + _cross_attention(x, lp["cross"], cfg, mkv)
             h = layers.apply_norm(x, lp["ln2"], cfg.norm)
-            ffn_out = _layer_ffn(h, lp, spec, cfg)
+            ffn_out, _ = _layer_ffn(h, lp, spec, cfg)
             if cfg.post_norms:
                 ffn_out = layers.apply_norm(ffn_out, lp["post_ln2"], cfg.norm)
             x = x + ffn_out

@@ -139,9 +139,9 @@ def _mha_full(x, ap, cfg: ModelConfig, positions, *, kv=None,
     return out.reshape(B, S, -1) @ ap["wo"], (k, v)
 
 
-@torch.no_grad()
 def encode(params, frames, cfg: ModelConfig):
-    """frames: [B, T_enc, D] stub embeddings -> the encoder's output."""
+    """frames: [B, T_enc, D] stub embeddings -> the encoder's output
+    (differentiable; never rematerialised, as in the reference)."""
     B, T, D = frames.shape
     x = frames + sinusoidal_positions(T, D, device=frames.device).to(
         frames.dtype)
@@ -157,13 +157,15 @@ def encode(params, frames, cfg: ModelConfig):
     return layers.apply_norm(x, params["enc_norm"], cfg.norm)
 
 
-@torch.no_grad()
 def forward(params, tokens, cfg: ModelConfig, *, frames=None,
             build_cache: bool = False, cache_len: Optional[int] = None,
-            **_unused):
+            remat: bool = False, with_aux: bool = False, **_unused):
     """tokens: [B, S] decoder input; frames: [B, T_enc, D] stub embeddings
-    (zeros when None, as in the reference) -> logits [B, S, V], and with
-    ``build_cache`` also the decode cache."""
+    (zeros when None, as in the reference) -> logits [B, S, V], with
+    ``build_cache`` also the decode cache, and with ``with_aux`` a zero
+    f32 aux loss.  ``remat`` checkpoints each decoder layer (the
+    reference's plain ``jax.checkpoint``; the encoder is not).
+    Differentiable: the caller picks grad mode."""
     B, S = tokens.shape
     dev = tokens.device
     if frames is None:
@@ -174,9 +176,8 @@ def forward(params, tokens, cfg: ModelConfig, *, frames=None,
     x = layers.embed_lookup(params["embed"], tokens)
     x = x + sinusoidal_positions(S, cfg.d_model, device=dev).to(x.dtype)
     Kp, hd = cfg.replicated_kv_heads(1), cfg.head_dim
-    caches: Dict[str, list] = {}
-    for j in range(cfg.num_layers):
-        lp = layers.layer_slice(params["dec"], j)
+
+    def layer(x, enc_out, lp):
         h = layers.apply_norm(x, lp["ln1"], cfg.norm)
         a, (k, v) = _mha_full(h, lp["attn"], cfg, positions, causal=True)
         x = x + a
@@ -189,6 +190,7 @@ def forward(params, tokens, cfg: ModelConfig, *, frames=None,
         h = layers.apply_norm(x, lp["ln2"], cfg.norm)
         x = x + layers.mlp_apply(h, lp["mlp"], gated=cfg.gated_mlp,
                                  act=cfg.act)
+        cache = {}
         if build_cache:
             W = cache_len or S
             if S >= W:
@@ -200,14 +202,24 @@ def forward(params, tokens, cfg: ModelConfig, *, frames=None,
                                              (0, 0, 0, 0, 0, W - S))
             slots = torch.arange(W, dtype=torch.int32, device=dev)
             ps = torch.where(slots < S, slots, -1)
-            for name, t in (("k", ks), ("v", vs), ("pos", ps.expand(B, W)),
-                            ("ck", ek), ("cv", ev)):
-                caches.setdefault(name, []).append(t)
+            cache = {"k": ks, "v": vs, "pos": ps.expand(B, W), "ck": ek,
+                     "cv": ev}
+        return x, cache
+
+    body = layers.remat_block(layer) if remat else layer
+    caches: Dict[str, list] = {}
+    for j in range(cfg.num_layers):
+        x, cache = body(x, enc_out, layers.layer_slice(params["dec"], j))
+        for name, t in cache.items():
+            caches.setdefault(name, []).append(t)
     x = layers.apply_norm(x, params["final_norm"], cfg.norm)
     logits = layers.unembed(x, params["embed"])
+    out = (logits,)
     if build_cache:
-        return logits, {k: torch.stack(v) for k, v in caches.items()}
-    return logits
+        out += ({k: torch.stack(v) for k, v in caches.items()},)
+    if with_aux:
+        out += (torch.zeros((), dtype=torch.float32, device=dev),)
+    return out if len(out) > 1 else logits
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,14 @@ port's equals the reference's with the field set.  A config of a family
 the transformer does not serve (ssm, hybrid, audio) raises
 ``NotImplementedError`` in ``block_layout``, ``init_cache`` and ``init``.
 The reference side is shape-only (``jax.eval_shape``): nothing runs.
+
+The four training fields change the train state or step: ``optimizer``
+the optimizer-state tree, ``grad_accum`` and ``accum_dtype`` the
+microbatches the loss sees and the type of the grads the optimizer gets,
+``remat_policy`` the products recomputed in the backward pass.  Each
+changes the port's state or step as it changes the reference's (the
+reference traced with ``jax.eval_shape`` and ``jax.make_jaxpr``; the
+port's tiny step runs).
 """
 import dataclasses
 
@@ -16,12 +24,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_tiny_config as jax_tiny  # noqa: E402
 from repro.models import build_model as jax_build  # noqa: E402
 from repro.models import transformer as jax_tf  # noqa: E402
+from repro.training import optim as jax_optim  # noqa: E402
+from repro.training import train_step as jax_ts  # noqa: E402
 from repro_torch.configs import get_tiny_config  # noqa: E402
 from repro_torch.models import build_model, transformer  # noqa: E402
+from repro_torch.training import optim, train_step  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 #: (field overrides, what of the reference's model they change)
 PORTED = [
@@ -87,3 +100,136 @@ def test_transformer_refuses_other_families(family):
 def test_default_fields_still_build():
     specs, n = transformer.block_layout(get_tiny_config("yi-9b"))
     assert [s.window for s in specs] == [0] and n > 0
+
+
+# ---------------------------------------------------------------------------
+# the training fields
+# ---------------------------------------------------------------------------
+#: (field overrides, what of the train state or step they change)
+TRAINING = [
+    ({"optimizer": "adafactor"}, "opt_state"),
+    ({"grad_accum": 2}, "accumulation"),
+    ({"grad_accum": 2, "accum_dtype": "bfloat16"}, "accumulation"),
+    ({"remat_policy": "dots"}, "recompute"),
+    ({"remat_policy": "everything"}, "recompute"),
+]
+TRAIN_B, TRAIN_S = 4, 16
+
+
+def _recording(make_optimizer, seen):
+    """``make_optimizer`` whose update notes the grads' dtypes."""
+    def make(name, cfg=None):
+        init, update = make_optimizer(name, cfg)
+
+        def noted(params, grads, state):
+            seen["grads"] |= {_dtype(g) for g in jax.tree.leaves(grads)}
+            return update(params, grads, state)
+        return init, noted
+    return make
+
+
+def _count_dots(jaxpr):
+    n = 0
+    for eqn in jaxpr.eqns:
+        n += eqn.primitive.name == "dot_general"
+        for p in eqn.params.values():
+            for sub in p if isinstance(p, (list, tuple)) else [p]:
+                if hasattr(sub, "eqns"):
+                    n += _count_dots(sub)
+                elif hasattr(sub, "jaxpr") and hasattr(sub.jaxpr, "eqns"):
+                    n += _count_dots(sub.jaxpr)
+    return n
+
+
+class _CountProducts(TorchDispatchMode):
+    """Counts matrix products (``mm``, ``addmm``, ``bmm``) while active."""
+
+    OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+           torch.ops.aten.bmm.default)
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += func in self.OPS
+        return func(*args, **(kwargs or {}))
+
+
+def _reference_train_view(cfg, what, monkeypatch):
+    model = jax_build(cfg)
+    batch = {"tokens": jax.ShapeDtypeStruct((TRAIN_B, TRAIN_S), jnp.int32)}
+    if what == "opt_state":
+        out = jax.eval_shape(lambda: jax_ts.init_train_state(
+            model, jax.random.PRNGKey(0))["opt"])
+        return jax.tree.map(lambda s: (s.shape, _dtype(s)), out)
+    if what == "accumulation":
+        seen = {"tokens": set(), "grads": set()}
+        loss = model.loss
+
+        def noted_loss(params, b, **kw):
+            seen["tokens"].add(tuple(b["tokens"].shape))
+            return loss(params, b, **kw)
+        model.loss = noted_loss
+        monkeypatch.setattr(jax_optim, "make_optimizer",
+                            _recording(jax_optim.make_optimizer, seen))
+        state = jax.eval_shape(lambda: jax_ts.init_train_state(
+            model, jax.random.PRNGKey(0)))
+        jax.eval_shape(jax_ts.make_train_step(model), state, batch)
+        return seen
+    params = jax.eval_shape(model.init, jax.random.PRNGKey(0))
+    jaxpr = jax.make_jaxpr(jax.grad(lambda p, b: model.loss(
+        p, b, remat=True)[0]))(params, batch)
+    return _count_dots(jaxpr.jaxpr)
+
+
+def _port_train_view(cfg, what, monkeypatch):
+    model = build_model(cfg, device="cpu")
+    state = train_step.init_train_state(model,
+                                        torch.Generator().manual_seed(0))
+    batch = {"tokens": torch.zeros((TRAIN_B, TRAIN_S), dtype=torch.int32)}
+    if what == "opt_state":
+        return jax.tree.map(lambda t: (tuple(t.shape), _dtype(t)),
+                            state["opt"])
+    if what == "accumulation":
+        seen = {"tokens": set(), "grads": set()}
+        loss = model.loss
+
+        def noted_loss(params, b, **kw):
+            seen["tokens"].add(tuple(b["tokens"].shape))
+            return loss(params, b, **kw)
+        model.loss = noted_loss
+        monkeypatch.setattr(optim, "make_optimizer",
+                            _recording(optim.make_optimizer, seen))
+        train_step.make_train_step(model)(state, batch)
+        return seen
+    loss, _ = model.loss(state["params"], batch, remat=True)
+    with _CountProducts() as counter:
+        torch.autograd.grad(loss, optim.leaves(state["params"]))
+    return counter.n
+
+
+@pytest.mark.parametrize("fields,what", TRAINING,
+                         ids=["+".join(c[0]) + "=" + "+".join(
+                             str(v) for v in c[0].values())
+                             for c in TRAINING])
+def test_training_field_changes_port_as_reference(fields, what,
+                                                  monkeypatch):
+    base = dataclasses.replace(jax_tiny("yi-9b"), dtype="float32")
+    changed = dataclasses.replace(base, **fields)
+    ref_base = _reference_train_view(base, what, monkeypatch)
+    ref_changed = _reference_train_view(changed, what, monkeypatch)
+    assert ref_changed != ref_base
+
+    tbase = dataclasses.replace(get_tiny_config("yi-9b"), dtype="float32")
+    port_base = _port_train_view(tbase, what, monkeypatch)
+    port_changed = _port_train_view(dataclasses.replace(tbase, **fields),
+                                    what, monkeypatch)
+    if what == "recompute":
+        # the reference traces jnp products, the port counts aten calls:
+        # the counts differ, the direction of the change must not
+        assert (port_changed < port_base) == (ref_changed < ref_base)
+        assert port_changed != port_base
+    else:
+        assert port_base == ref_base
+        assert port_changed == ref_changed

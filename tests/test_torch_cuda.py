@@ -1227,3 +1227,93 @@ def test_tiny_serve_flow_on_card_matches_cpu(dev, monkeypatch):
     assert moved == {"cuda": {"flash_attention": L * len(texts),
                               "decode_attention": L * 4 * len(texts)},
                      "cpu": {"flash_attention": 0, "decode_attention": 0}}
+
+
+# -- training: the kernels have no backward ---------------------------------
+
+def _guarded_call(name, dev):
+    """(wrapper, its inputs on the card, the index of a float input that
+    may require grad) at small valid shapes."""
+    f32 = torch.float32
+    if name == "flash_attention":
+        q = _rand((1, 4, 64, 64), torch.bfloat16, dev, 0)
+        k = _rand((1, 2, 64, 64), torch.bfloat16, dev, 1)
+        return kops.flash_attention, (q, k, k.clone()), 0
+    if name == "decode_attention":
+        q = _rand((2, 4, 64), f32, dev, 0)
+        kc = _rand((2, 2, 32, 64), f32, dev, 1)
+        kpos, qpos = _ring(2, 32, [32, 20], dev)
+        return kops.decode_attention, (q, kc, kc.clone(), kpos, qpos), 0
+    if name == "wkv6":
+        r = _rand((1, 16, 2, 64), f32, dev, 0)
+        w = _decay((1, 16, 2, 64), f32, dev, 3)
+        u = _rand((2, 64), f32, dev, 4)
+        return kops.wkv6, (r, r.clone(), r.clone(), w, u), 1
+    a = _decay((2, 16, 128), f32, dev, 0)
+    return kops.rglru_scan, (a, _rand((2, 16, 128), f32, dev, 1)), 1
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
+                                  "wkv6", "rglru_scan"])
+def test_kernel_refuses_inputs_that_require_grad(dev, name):
+    """A launch would return a tensor cut off from the graph: the wrapper
+    raises instead, and launches nothing."""
+    fn, args, i = _guarded_call(name, dev)
+    args[i].requires_grad_(True)
+    n0 = fn.launches
+    with pytest.raises(KernelError, match="no backward kernel"):
+        fn(*args)
+    assert fn.launches == n0
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
+                                  "wkv6", "rglru_scan"])
+def test_kernel_launches_under_no_grad_on_grad_inputs(dev, name):
+    fn, args, i = _guarded_call(name, dev)
+    args[i].requires_grad_(True)
+    n0 = fn.launches
+    with torch.no_grad():
+        out = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    assert torch.isfinite(out).all() and out.grad_fn is None
+
+
+def test_train_step_on_card_matches_cpu_and_refuses_kernels(dev):
+    """One f32 train step of tiny yi-9b on the card: loss and grads equal
+    the CPU's on the same params; the same model built with
+    ``use_kernels=True`` raises in the train step and runs in the eval
+    step."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.models import build_model
+    from repro_torch.training import optim, train_step
+
+    cfg = dataclasses.replace(get_tiny_config("yi-9b"), dtype="float32")
+    cpu_params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32))
+    out = {}
+    for where in ("cpu", "cuda"):
+        params = train_step.trainable(torch.utils._pytree.tree_map(
+            lambda t: t.to(where), cpu_params))
+        out[where] = train_step.value_and_grad(
+            build_model(cfg, device=where), params,
+            {"tokens": toks.to(where)})
+    assert abs(float(out["cuda"][0]) - float(out["cpu"][0])) <= \
+        1e-5 * abs(float(out["cpu"][0]))
+    for a, b in zip(optim.leaves(out["cuda"][2]), optim.leaves(out["cpu"][2])):
+        assert float((a.cpu() - b).abs().max()) <= \
+            1e-3 * float(b.abs().max()) + 1e-7
+    kern = build_model(dataclasses.replace(cfg, use_kernels=True),
+                       device=dev)
+    params = train_step.trainable(torch.utils._pytree.tree_map(
+        lambda t: t.to(dev), cpu_params))
+    state = train_step.init_train_state(kern, params=params)
+    with pytest.raises(KernelError, match="no backward kernel"):
+        train_step.make_train_step(kern)(state, {"tokens": toks.to(dev)})
+    n0 = kops.flash_attention.launches
+    met = train_step.make_eval_step(kern)(params, {"tokens": toks.to(dev)})
+    assert kops.flash_attention.launches == n0 + cfg.num_layers
+    assert abs(float(met["loss"]) - float(out["cpu"][0])) <= \
+        1e-4 * abs(float(out["cpu"][0]))
