@@ -800,21 +800,24 @@ def phase_recurrent_kernels(torch, dev, g, flush):
     return results
 
 
-def serve(torch, dev, cfg, calls=3, params=None):
+def serve(torch, dev, cfg, calls=3, params=None, ax=None):
     """Compile the cascade for ``cfg`` on a card Runtime and answer the
     same ``PROMPTS`` x ``SEQ`` batch ``calls`` times, with every kernel's
     launch counter set to 0 just before; ``params`` (drawn from the seed
     when None) are the weights.  Returns (model, params, tokens,
     greedy tokens, per-call latencies, per-call re-traces, the chain's
     (batched, per-row) dispatches, launches).  Nothing returned holds the
-    chain, whose steps close over the params."""
+    chain, whose steps close over the params.  With ``ax`` (a mesh's
+    axes) the model is built under the mesh and ``params`` are DTensors
+    placed on it; the stages place their inputs and unplace their
+    outputs (``Model.placed``)."""
     from repro_torch.core.lowering import EXECUTABLE_CACHE
     from repro_torch.core.table import Table
     from repro_torch.examples import decode_cascade as dc
     from repro_torch.models import build_model
 
     prompts, seq, cache_len, steps = PROMPTS, SEQ, CACHE, STEPS
-    model = build_model(cfg, device=dev)
+    model = build_model(cfg, device=dev, ax=ax)
     if params is None:
         params = model.init(torch.Generator(device=dev).manual_seed(SEED))
     toks = torch.randint(0, cfg.vocab_size, (prompts, seq),
@@ -929,6 +932,7 @@ def phase_path(torch, dev, arch, f32_layers, logits_layers, keep=False,
     ref = dc.reference_decode(model, params, toks, steps=STEPS,
                               cache_len=CACHE)
     check(got == ref, f"fused cascade tokens == unfused loop {ref}")
+    PATH_TOKENS[cfg.name] = got
     print(f"  {cfg.dtype} {L}-layer {cfg.name} latency: first "
           f"{lats[0] * 1e3} ms, steady {min(lats) * 1e3} ms ({PROMPTS} "
           f"prompts x {SEQ} tokens, {STEPS} decode steps)", flush=True)
@@ -2799,8 +2803,8 @@ def _routes(torch, fn):
 
     seen, real = [], moe._router
 
-    def recording(xf, router_w, k):
-        out = real(xf, router_w, k)
+    def recording(xf, router_w, k, *rest):
+        out = real(xf, router_w, k, *rest)
         seen.append(torch.sort(out[1], dim=-1).values)
         return out
 
@@ -3726,6 +3730,249 @@ def _negate_lam(tree):
     return {k: -v if k == "lam" else _negate_lam(v) for k, v in tree.items()}
 
 
+# -- phase 12, the mesh -----------------------------------------------------
+
+#: greedy tokens of each bf16 path served at full width (phases 4 and 9),
+#: held for phase 12's meshed runs
+PATH_TOKENS = {}
+#: phase 12: the dry-run combinations, each traced in its own process on
+#: the fake group while the card serves: (arch, shape, multi-pod)
+MESH_DRYRUNS = (("yi-9b", "train_4k", False),
+                ("arctic-480b", "decode_32k", True),
+                ("gemma2-9b", "long_500k", False),
+                ("whisper-medium", "prefill_32k", False))
+DRYRUN_TIMEOUT_S = 600
+#: phase 12: arctic-480b's depth (as phase 9 serves it) and the capacity
+#: factors of ``moe_apply_ep`` at mp 1 (8: nothing drops; the config's)
+MESH_ARCTIC_LAYERS = 2
+EP_FACTORS = (8.0, 1.25)
+
+
+def _start_dryruns():
+    """Start every ``MESH_DRYRUNS`` combination as ``python -m
+    repro_torch.launch.dryrun`` in its own process: CPU work on the fake
+    group, which runs while the card serves."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    procs = []
+    for arch, shape, multi in MESH_DRYRUNS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape] + (["--multipod"] if multi else [])
+        procs.append(((arch, shape), subprocess.Popen(
+            cmd, env=env, cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def _finish_dryruns(procs, smi):
+    """Wait for the dry-runs; each must exit 0 with CUDA never
+    initialised.  Prints each one's per-rank bytes beside the card's HBM,
+    its lower time and its collective bytes."""
+    rows = {}
+    try:
+        for (arch, shape), p in procs:
+            out, err = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+            if p.returncode != 0:
+                raise SmokeFailure(f"dry-run {arch} {shape} exit "
+                                   f"{p.returncode}: {err[:1500]} ... "
+                                   f"{err[-3000:]}")
+            r = json.loads(out[out.index("{"):])
+            check(r["cuda_initialized"] is False,
+                  f"dry-run {arch} {shape}: CUDA never initialised")
+            mem, roof = r["memory"], r["roofline_counted"]
+            lower = max(roof["t_compute_s"], roof["t_memory_s"],
+                        roof["t_collective_s"])
+            row = {"mesh": r["mesh"], "trace_s": r["trace_s"],
+                   "argument_bytes": mem["argument_bytes"],
+                   "peak_est_bytes": mem["peak_est_bytes"],
+                   "hbm_per_chip": mem["hbm_per_chip"],
+                   "lower_s": lower, "bottleneck": roof["bottleneck"],
+                   "collective_bytes": r["collectives"]["total"],
+                   "cuda_initialized": r["cuda_initialized"]}
+            rows[f"{arch} {shape}"] = row
+            print(f"  dry-run {arch} {shape} at {r['mesh']}: per rank "
+                  f"argument {mem['argument_bytes']} bytes, peak "
+                  f"{mem['peak_est_bytes']} bytes beside the H100's "
+                  f"{mem['hbm_per_chip']:.0f}; lower time {lower} s "
+                  f"({roof['bottleneck']}); collectives "
+                  f"{r['collectives']['total']:.0f} bytes; traced in "
+                  f"{r['trace_s']} s; CUDA initialised in the subprocess: "
+                  f"{r['cuda_initialized']}", flush=True)
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return rows
+
+
+def _mesh_serve(torch, dev, cfg, ax, mode, smi):
+    """``cfg`` served through the cascade twice from the same seeded
+    weights: without a mesh, then with ``ax`` and the params placed by
+    ``param_pspecs(mode=mode)`` (the same tensors: views, no copy).  The
+    tokens, the launches and the peak above the held weights are checked
+    equal (the peak within 1%).
+    Returns (mesh run's tokens, its launches, params)."""
+    from repro_torch.launch import sharding as sh
+
+    from repro_torch.models import build_model
+
+    params = build_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, _, _, want, lats, _, disp, launches = serve(torch, dev, cfg,
+                                                   params=params)
+    peak0 = torch.cuda.max_memory_allocated(dev) - held
+    want_launches = expected_launches(cfg, sum(disp), STEPS)
+    check(launches == want_launches, f"{cfg.name} without a mesh: "
+          f"launches {launches} == {want_launches}")
+    dparams = sh.distribute(params, ax.mesh, sh.param_pspecs(
+        params, cfg, ax, mode=mode))
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, _, _, got, lats1, _, disp1, launches1 = serve(
+        torch, dev, cfg, params=dparams, ax=ax)
+    peak1 = torch.cuda.max_memory_allocated(dev) - held
+    want1 = expected_launches(cfg, sum(disp1), STEPS)
+    check(got == want, f"{cfg.name} under a (1, 1) mesh: tokens {got} == "
+          f"the run without a mesh {want}")
+    check(launches1 == want1, f"{cfg.name} under a (1, 1) mesh: launches "
+          f"{launches1} == {want1}")
+    check(peak1 <= 1.01 * peak0, f"{cfg.name} under a (1, 1) mesh: peak "
+          f"{peak1} bytes within 1% of {peak0} (no copies held)")
+    print(f"  {cfg.name} ({cfg.num_layers} layers, {cfg.dtype}, params "
+          f"{mode} specs): tokens {got}; launches {launches1}; peak above "
+          f"the {held} bytes held (the weights among them) {peak1} bytes "
+          f"under the mesh, {peak0} without; steady "
+          f"{min(lats1) * 1e3} ms under the mesh, {min(lats) * 1e3} ms "
+          f"without; {smi}", flush=True)
+    return got, launches1, params
+
+
+def _ep_rows(torch, dev, cfg, params, ax, smi):
+    """``moe_apply_ep`` at mp 1 on arctic's full-width MoE layer (the
+    first layer's params of ``params``), for seq-sharded and decode
+    tokens x ``all_to_all`` and ``allgather``, at a decode batch (B 4)
+    and a prefill (B 4 x 256): at capacity factor 8 nothing drops and
+    the output is within the bf16 bar of ``moe_apply_reference``; at the
+    config's factor the share of dropped pairs and the time are printed
+    beside the served ``moe_apply``'s, with the bytes bound of reading
+    every expert's weights (the capacity buckets give each expert a row
+    at mp 1)."""
+    from repro_torch.interop import torch_dtype
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import moe
+    from repro_torch.models.partition import P, place, unplace
+    from repro_torch.roofline import hw
+
+    lp = {k: v[0] for k, v in params["blocks"]["0"]["moe"].items()}
+    dlp = sh.distribute(lp, ax.mesh, {
+        k: P(*([None] * v.dim())) if k == "router" else P("model", None, None)
+        for k, v in lp.items()})
+    expert_bytes = sum(w.numel() * w.element_size()
+                       for k, w in lp.items() if k != "router")
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    dt = torch_dtype(cfg.dtype)
+    rows = {}
+    for label, S in (("decode", 1), ("prefill", SEQ)):
+        x = torch.randn((PROMPTS, S, cfg.d_model), generator=g,
+                        device=dev).to(dt)
+        dx = place(x, ax.mesh, P(ax.batch, None, None))
+        want, _ = moe.moe_apply_reference(x, lp, cfg)
+        T = PROMPTS * S
+        flat_e = moe._router(x.reshape(-1, cfg.d_model), lp["router"],
+                             cfg.num_experts_per_tok)[1].reshape(-1)
+        ranks = moe.bucket_ranks(flat_e, cfg.num_experts)
+        served_ms = time_ms(torch, lambda: moe.moe_apply(x, lp, cfg),
+                            iters=5, warmup=1)
+        for factor in EP_FACTORS:
+            c = dataclasses.replace(cfg, capacity_factor=factor)
+            C = moe._capacity(T, cfg.num_experts_per_tok, cfg.num_experts,
+                              factor)
+            dropped = float((ranks >= C).float().mean())
+            for seq_sharded in (True, False):
+                for disp in ("all_to_all", "allgather"):
+                    def call():
+                        return moe.moe_apply_ep(dx, dlp, c, ax,
+                                                seq_sharded=seq_sharded,
+                                                dispatch=disp)
+                    y = unplace(call()[0])
+                    err = rel_err(y, want)
+                    key = (f"{label} cf {factor} "
+                           f"{'seq' if seq_sharded else 'decode'} {disp}")
+                    if factor == 8.0:
+                        check(dropped == 0 and err < BF16_REL,
+                              f"moe_apply_ep {key}: {dropped} of the pairs "
+                              f"dropped, rel err {err} < {BF16_REL} vs "
+                              f"moe_apply_reference")
+                    ms = time_ms(torch, call, iters=5, warmup=1)
+                    bound = expert_bytes / hw.HBM_BW * 1e3
+                    rows[key] = {"T": T, "capacity": C, "dropped": dropped,
+                                 "rel_err": err, "ms": ms,
+                                 "served_moe_apply_ms": served_ms,
+                                 "expert_bytes": expert_bytes,
+                                 "bound_ms": bound}
+                    print(f"  moe_apply_ep {key}: C {C}, {dropped} of the "
+                          f"pairs dropped, rel err {err} vs the masked "
+                          f"combine; {ms} ms (reads all {cfg.num_experts} "
+                          f"experts, {expert_bytes} bytes: bound {bound} "
+                          f"ms) beside the served moe_apply's {served_ms} "
+                          f"ms; {smi}", flush=True)
+    return rows
+
+
+def phase_mesh(torch, dev, smi):
+    """NCCL at world size 1 and a (1, 1) mesh on the card: full-width
+    yi-9b (48 layers, bf16) served through the cascade with its params
+    placed by ``param_pspecs(mode="serve")`` and its cache by
+    ``cache_pspecs``, the flash and decode kernels launched inside the
+    attention's ``local_map`` regions: tokens equal to the run without a
+    mesh and to phase 4's, launches as ``expected_launches``, the peak
+    within 1%.  arctic-480b at full width and 2 layers with
+    ``param_pspecs(mode="train")``: tokens equal to phase 9's.
+    ``moe_apply_ep`` at mp 1 on arctic's MoE layer (``_ep_rows``).  The
+    four ``MESH_DRYRUNS`` traced in subprocesses meanwhile.  Returns the
+    yi-9b mesh run's launches of the two attention kernels."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as M
+
+    procs = _start_dryruns()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = M.make_host_mesh((1, 1))
+        ax = M.make_axis_info(mesh)
+        cfg = dataclasses.replace(get_config("yi-9b"), use_kernels=True)
+        got, launches, _ = _mesh_serve(torch, dev, cfg, ax, "serve", smi)
+        check(got == PATH_TOKENS["yi-9b"], f"yi-9b under the mesh: tokens "
+              f"{got} == phase 4's {PATH_TOKENS['yi-9b']}")
+        _release(torch)
+        cfg = dataclasses.replace(get_config("arctic-480b"), use_kernels=True,
+                                  num_layers=MESH_ARCTIC_LAYERS)
+        got_a, _, params = _mesh_serve(torch, dev, cfg, ax, "train", smi)
+        check(got_a == PATH_TOKENS["arctic-480b"], f"arctic-480b under the "
+              f"mesh: tokens {got_a} == phase 9's "
+              f"{PATH_TOKENS['arctic-480b']}")
+        ep = _ep_rows(torch, dev, cfg, params, ax, smi)
+        del params
+        _release(torch)
+        dry = _finish_dryruns(procs, smi)
+        print("mesh: " + json.dumps({"ep": ep, "dryrun": dry}), flush=True)
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        dist.destroy_process_group()
+    return {"flash_attention": launches["flash_attention"],
+            "decode_attention": launches["decode_attention"]}
+
+
 def _release(torch):
     """Free a path's weights: the process-wide executable cache holds the
     chain's step functions, and they close over the params."""
@@ -3842,6 +4089,11 @@ def main() -> int:
     _release(torch)
     phase_training(torch, dev, smi)
     _release(torch)
+
+    t0 = _phase("mesh", t0)
+    for name, n in phase_mesh(torch, dev, smi).items():
+        kernels[name]["mesh_launches"] = n
+    _release(torch)
     _phase(None, t0)
     print(f"  chip_smoke total: {time.perf_counter() - T_START:.1f} s",
           flush=True)
@@ -3851,7 +4103,8 @@ def main() -> int:
     extra = ["device_ms", "library_device_ms", "instance", "shape",
              "library_note", "sdpa_no_softcap_ms",
              "sdpa_no_softcap_device_ms", "sdpa_causal_no_softcap_ms",
-             "sdpa_causal_no_softcap_device_ms", "no_softcap_ms"]
+             "sdpa_causal_no_softcap_device_ms", "no_softcap_ms",
+             "mesh_launches"]
     line = {"kernels": [{k: kernels[n][k] for k in keys + extra
                          if k in kernels[n]} for n in KERNEL_ROWS]}
     print(smi, flush=True)

@@ -41,11 +41,39 @@ def tensor_from_numpy(a, device: torch.device,
     return t.to(device=device, dtype=dtype or src_dtype or t.dtype)
 
 
+def check_param_shapes(params: Dict[str, Any], model) -> None:
+    """Raise unless ``params`` has the tree and the leaf shapes of
+    ``model``'s own parameters (built on the meta device at the model's
+    mesh axes: heads padded and replicated to its model axis, as the
+    reference's ``build_model(cfg, ax)`` makes them)."""
+    from repro_torch.models.registry import build_model
+    want = build_model(model.cfg, "meta", model.ax,
+                       long_context=model.long_context).init()
+
+    def walk(got, ref, path):
+        if isinstance(ref, dict):
+            keys = sorted(got) if isinstance(got, dict) else got
+            if keys != sorted(ref):
+                raise ValueError(f"params at {path or '/'}: keys {keys!r} "
+                                 f"!= {sorted(ref)}")
+            for k in ref:
+                walk(got[k], ref[k], f"{path}/{k}")
+        elif tuple(got.shape) != tuple(ref.shape):
+            raise ValueError(f"params at {path}: shape {tuple(got.shape)} "
+                             f"!= the model's {tuple(ref.shape)}")
+
+    walk(params, want, "")
+
+
 def params_from_numpy(tree: Dict[str, Any], device: DeviceLike = None,
-                      dtype=None) -> Dict[str, Any]:
+                      dtype=None, *, model=None) -> Dict[str, Any]:
     """Nested dict of numpy arrays -> nested dict of tensors on ``device``.
     ``dtype`` (optional) casts every floating leaf; integer leaves keep
-    their type."""
+    their type.  With ``model`` every leaf's shape is checked against the
+    model's at its mesh's model axis (:func:`check_param_shapes`): the
+    reference's params of a mesh-built model carry padded heads."""
+    if model is not None:
+        check_param_shapes(tree, model)
     dev = resolve_device(device)
     want = torch_dtype(dtype) if dtype is not None else None
 

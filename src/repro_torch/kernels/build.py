@@ -190,7 +190,17 @@ def card_of(name: str, tensors) -> Optional[torch.device]:
     Fake tensors (``FakeTensorMode``: shape and dtype, no storage) also
     give None: the plain version then propagates shapes and computes no
     data, and the call is noted for :func:`abstract_calls`.  A tensor
-    that holds data is never fake, so no call on the card takes this."""
+    that holds data is never fake, so no call on the card takes this.
+
+    A DTensor raises :class:`KernelError`: the kernels run inside the
+    models' ``local_map`` regions on each rank's local shards, and a
+    wrapper neither gathers a DTensor into a whole tensor nor falls back
+    to its plain version."""
+    from torch.utils._python_dispatch import is_traceable_wrapper_subclass
+    if any(is_traceable_wrapper_subclass(t) for t in tensors):
+        raise KernelError(
+            f"{name}: a DTensor reached the kernel wrapper; call it on each "
+            "rank's local shards (models.partition.local_region)")
     if any(isinstance(t, FakeTensor) for t in tensors):
         calls = getattr(_ABSTRACT, "calls", None)
         if calls is not None:

@@ -168,6 +168,14 @@ def chunked_attention(q, k, v, *, q_positions, k_positions,
     q: [B, Sq, H, hd];  k, v: [B, Sk, K, hd] with H = K*G (GQA).
     q_positions: [Sq] or [B, Sq]; k_positions: [Sk] or [B, Sk] (-1 invalid).
     Returns [B, Sq, H, hd].
+
+    One online-softmax pass over the key chunks, every query row at once:
+    each row meets the key chunks in the reference's order, so each row's
+    arithmetic is the reference's, whose scan takes the query chunks one
+    after another.  Live memory is O(Sq * chunk_k); the query loop of
+    the reference would cost Sq / chunk_q times the ops in eager mode
+    (and in the dry-run's trace).  ``chunk_q`` must still divide Sq, as
+    in the reference.
     """
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
@@ -183,36 +191,30 @@ def chunked_attention(q, k, v, *, q_positions, k_positions,
     if k_positions.dim() == 1:
         k_positions = k_positions[None].expand(B, Sk)
 
-    outs = []
-    for q0 in range(0, Sq, cq):
-        # [B, K, G, cq, hd]
-        q_blk = q[:, q0:q0 + cq].reshape(B, cq, K, G, hd).permute(
-            0, 2, 3, 1, 4).float()
-        qpos = q_positions[:, q0:q0 + cq]
-        m = torch.full((B, K, G, cq), NEG_INF, dtype=torch.float32,
-                       device=q.device)
-        l = torch.zeros((B, K, G, cq), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((B, K, G, cq, hd), dtype=torch.float32,
-                          device=q.device)
-        for k0 in range(0, Sk, ck):
-            k_blk = k[:, k0:k0 + ck].permute(0, 2, 1, 3).float()
-            v_blk = v[:, k0:k0 + ck].permute(0, 2, 1, 3).float()
-            kpos = k_positions[:, k0:k0 + ck]
-            logits = torch.einsum("bkgqd,bkcd->bkgqc", q_blk, k_blk) * scale
-            logits = _softcap(logits, softcap)
-            logits = _mask_logits(
-                logits, qpos[:, None, None, :], kpos[:, None, None, :],
-                causal=causal, window=window)
-            m_new = torch.maximum(m, logits.amax(dim=-1))
-            p = torch.exp(logits - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bkgqc,bkcd->bkgqd", p, v_blk)
-            m = m_new
-        out = acc / torch.clamp_min(l, 1e-30)[..., None]
-        outs.append(out.to(q.dtype))                 # [B,K,G,cq,hd]
-    out = torch.cat(outs, dim=3)                     # [B,K,G,Sq,hd]
+    # [B, K, G, Sq, hd]
+    q_all = q.reshape(B, Sq, K, G, hd).permute(0, 2, 3, 1, 4).float()
+    qpos = q_positions[:, None, None, :]
+    m = torch.full((B, K, G, Sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, K, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, K, G, Sq, hd), dtype=torch.float32,
+                      device=q.device)
+    for k0 in range(0, Sk, ck):
+        k_blk = k[:, k0:k0 + ck].permute(0, 2, 1, 3).float()
+        v_blk = v[:, k0:k0 + ck].permute(0, 2, 1, 3).float()
+        kpos = k_positions[:, k0:k0 + ck]
+        logits = torch.einsum("bkgqd,bkcd->bkgqc", q_all, k_blk) * scale
+        logits = _softcap(logits, softcap)
+        logits = _mask_logits(logits, qpos, kpos[:, None, None, :],
+                              causal=causal, window=window)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqc,bkcd->bkgqd", p, v_blk)
+        m = m_new
+    out = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
 
 
@@ -284,7 +286,10 @@ def mlp_apply(x, params, *, gated: bool, act: str):
 def dense_init(shape, dtype, *, fan_in: int, generator: torch.Generator,
                device):
     """Normal(0, 1/sqrt(fan_in)) in float32, cast to ``dtype`` (the
-    reference's ``dense_init`` scale)."""
+    reference's ``dense_init`` scale).  On the meta device only the shape
+    and dtype are made."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     std = 1.0 / math.sqrt(fan_in)
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=device)
@@ -295,7 +300,7 @@ def dense_init(shape, dtype, *, fan_in: int, generator: torch.Generator,
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
 def embed_lookup(table, tokens, *, scale_by_dim: bool = False):
-    out = table[tokens.long()]
+    out = F.embedding(tokens.long(), table)
     if scale_by_dim:
         out = out * math.sqrt(table.shape[-1])
     return out

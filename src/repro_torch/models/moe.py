@@ -16,20 +16,36 @@ Two functions compute the same thing:
   none either: ``capacity_factor`` plays no part), and nothing is read
   back to the host, so the static verifier can walk it.
 
-The expert-parallel path of the reference (``_capacity``,
-``_dispatch_combine_local``, ``moe_apply_ep``) runs only under a mesh
-with more than one model shard, and waits for the port of ``launch/`` and
-``models/partition.py``.
+Under a mesh whose model axis has more than one rank, :func:`moe_apply`
+takes the reference's expert-parallel path, :func:`moe_apply_ep`: each
+rank routes its own tokens into per-expert capacity buckets of
+``_capacity(T, k, E, capacity_factor)`` rows (a stable sort of the expert
+ids ranks the pairs, so the same pairs drop as in the reference), the
+buckets go to the experts' ranks with one ``all_to_all`` over the model
+axis (or every rank gathers all experts' weights, ``dispatch=
+"allgather"``), and the outputs come back the same way.  That body runs
+in a ``local_map`` region (:func:`~repro_torch.models.partition.
+local_region`) on each rank's local tokens and expert shards, as the
+reference's ``shard_map`` runs it: DTensor's own rules would gather the
+whole batch for the router's sort and the bucket scatter.  At a model
+axis of 1 under a mesh the served path runs in such a region too, on
+each rank's own tokens (``torch._grouped_mm`` has no DTensor rule), and
+its load-balance statistics are averaged over the data ranks, so the
+loss is the global one.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import math
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
+from repro_torch.models.partition import (AxisInfo, P, all_gather,
+                                          all_to_all, is_dtensor,
+                                          local_region, pmean, reshard)
 
 _EXPERT_MATS = ("w_gate", "w_up", "w_down")
 
@@ -46,6 +62,8 @@ def moe_init(cfg: ModelConfig, dtype: torch.dtype, n_layers: int, *,
 
     def stack(shape, fan_in):
         out = torch.empty((n_layers, E) + shape, dtype=dtype, device=device)
+        if out.device.type == "meta":
+            return out
         for i in range(n_layers):
             for e in range(E):
                 out[i, e] = layers.dense_init(shape, dtype, fan_in=fan_in,
@@ -77,7 +95,7 @@ def quantize_expert_weights(moe_params: Dict[str, Any]) -> Dict[str, Any]:
         q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
         s = torch.empty(w.shape[:2] + w.shape[-1:], dtype=torch.float32,
                         device=w.device)
-        for i in range(w.shape[0]):
+        for i in range(0 if w.device.type == "meta" else w.shape[0]):
             for e in range(w.shape[1]):
                 wf = w[i, e].float()
                 amax = torch.clamp_min(wf.abs().amax(dim=-2), 1e-8)
@@ -101,28 +119,30 @@ def _maybe_dequant(w, dtype=torch.bfloat16):
 
 
 def _expert_ffn(x, w_gate, w_up, w_down, act: str, gated: bool):
-    """x: [E, C, D]; weights: [E, D, F] / [E, F, D] (or int8 dicts)."""
+    """x: [..., E, C, D]; weights: [E, D, F] / [E, F, D] (or int8
+    dicts)."""
     w_gate = _maybe_dequant(w_gate)
     w_up = _maybe_dequant(w_up)
     w_down = _maybe_dequant(w_down)
     dt = torch.promote_types(x.dtype, w_up.dtype)
     x = x.to(dt)
-    up = torch.einsum("ecd,edf->ecf", x, w_up.to(dt))
+    up = torch.einsum("...ecd,edf->...ecf", x, w_up.to(dt))
     if gated:
-        g = torch.einsum("ecd,edf->ecf", x, w_gate.to(dt))
+        g = torch.einsum("...ecd,edf->...ecf", x, w_gate.to(dt))
         h = layers._act(g, act) * up
     else:
         h = layers._act(up, act)
-    return torch.einsum("ecf,efd->ecd", h, w_down.to(dt))
+    return torch.einsum("...ecf,efd->...ecd", h, w_down.to(dt))
 
 
-def _router(xf, router_w, k: int):
+def _router(xf, router_w, k: int, mean=None):
     """xf: [T, D] -> (weights [T, k] f32, experts [T, k] int64, aux loss
     scalar f32).  f32 logits and softmax, the k largest probabilities
     renormalised by ``max(sum, 1e-9)``, and the Switch load-balance loss
     from each token's first choice.  Ties go to the lower expert, as
     ``jax.lax.top_k`` has them: a stable descending sort, where
-    ``torch.topk`` leaves the order of ties open."""
+    ``torch.topk`` leaves the order of ties open.  ``mean`` (optional)
+    averages the two load-balance statistics over ranks."""
     logits = xf.float() @ router_w.float()
     probs = torch.softmax(logits, dim=-1)                        # [T, E]
     top_w, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -135,6 +155,8 @@ def _router(xf, router_w, k: int):
     ce = torch.zeros(E, dtype=torch.float32, device=xf.device).scatter_add_(
         0, top_i[:, 0], torch.ones(T, dtype=torch.float32,
                                    device=xf.device)) / T
+    if mean is not None:       # statistics over every rank's tokens
+        me, ce = mean(me), mean(ce)
     aux = E * torch.sum(me * ce)
     return top_w, top_i, aux
 
@@ -174,15 +196,16 @@ def _grouped(x, w, ends):
     return torch._grouped_mm(x, w, offs=ends)
 
 
-def moe_apply(x, params, cfg: ModelConfig) -> Tuple[torch.Tensor,
-                                                    torch.Tensor]:
+def moe_apply_grouped(x, params, cfg: ModelConfig, mean=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> (y [B, S, D], aux): the served path, the same
-    function as :func:`moe_apply_reference` (see the module docstring)."""
+    function as :func:`moe_apply_reference` (see the module docstring).
+    ``mean`` as in :func:`_router`."""
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     xf = x.reshape(-1, D)
     T = xf.shape[0]
-    top_w, top_i, aux = _router(xf, params["router"], k)
+    top_w, top_i, aux = _router(xf, params["router"], k, mean)
     flat_e = top_i.reshape(-1)                                   # [T*k]
     order = torch.argsort(flat_e, stable=True)      # pairs, by expert
     token = order // k
@@ -206,3 +229,200 @@ def moe_apply(x, params, cfg: ModelConfig) -> Tuple[torch.Tensor,
     y.index_add_(0, token, gate[:, None] * out_rows.float())
     return y.reshape(B, S, D).to(x.dtype), aux
 
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel path (a mesh with more than one model rank)
+# ---------------------------------------------------------------------------
+def _capacity(tokens: int, k: int, E: int, factor: float) -> int:
+    return max(1, int(math.ceil(tokens * k * factor / E)))
+
+
+def bucket_ranks(flat_e, E: int):
+    """Each (token, expert) pair's rank within its expert's bucket, in
+    pair order: a stable sort of the expert ids (``jnp.argsort`` is
+    stable), so the pairs ranked past a capacity, which drop, are the
+    same in both packages."""
+    n = flat_e.shape[0]
+    order = torch.argsort(flat_e, stable=True)
+    counts = torch.zeros(E, dtype=torch.int64, device=flat_e.device
+                         ).scatter_add_(0, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, 0) - counts
+    ranks_sorted = torch.arange(n, device=flat_e.device) - starts[
+        flat_e[order]]
+    return torch.empty_like(ranks_sorted).scatter_(0, order, ranks_sorted)
+
+
+def _dispatch_combine_local(xf, router_w, w_gate, w_up, w_down, *,
+                            cfg: ModelConfig, mp: int, group=None,
+                            dispatch: str = "all_to_all"):
+    """One rank's part of the expert-parallel layer.  xf: [T, D] local
+    tokens; expert weights are the local shard [E/mp, D, F] (or int8
+    dicts); ``group`` is the model axis's process group.  Each (token,
+    expert) pair gets a rank within its expert from a stable sort of the
+    expert ids; pairs ranked past the capacity C are dropped.  Returns
+    (y [T, D], aux)."""
+    T, D = xf.shape
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    C = _capacity(T, k, E, cfg.capacity_factor)
+
+    top_w, top_i, aux = _router(xf, router_w, k)
+    flat_e = top_i.reshape(-1)                                   # [T*k]
+    flat_w = top_w.reshape(-1)
+    dev = xf.device
+    token_idx = torch.arange(T * k, device=dev) // k
+    ranks = bucket_ranks(flat_e, E)
+    keep = ranks < C
+    safe_rank = torch.where(keep, ranks, C - 1)
+
+    # dispatch buffer [E, C, D]
+    contrib = torch.where(keep[:, None], xf[token_idx],
+                          torch.zeros((), dtype=xf.dtype, device=dev))
+    buf = torch.zeros((E, C, D), dtype=xf.dtype, device=dev).index_put_(
+        (flat_e, safe_rank), contrib, accumulate=True)
+
+    if dispatch == "all_to_all" and mp > 1:
+        recv = all_to_all(buf.reshape(mp, E // mp, C, D), group)
+        h = _expert_ffn(recv, w_gate, w_up, w_down, cfg.act, cfg.gated_mlp)
+        out_buf = all_to_all(h, group).reshape(E, C, D)
+    elif mp > 1:
+        # baseline "allgather" dispatch: gather full expert weights per rank
+        def gather(w):
+            if isinstance(w, dict):
+                return {n: all_gather(t, group) for n, t in w.items()}
+            return all_gather(w, group)
+        out_buf = _expert_ffn(buf, gather(w_gate) if cfg.gated_mlp else None,
+                              gather(w_up), gather(w_down), cfg.act,
+                              cfg.gated_mlp)
+    else:
+        out_buf = _expert_ffn(buf, w_gate, w_up, w_down, cfg.act,
+                              cfg.gated_mlp)
+
+    gathered = out_buf[flat_e, safe_rank] * keep[:, None]
+    y = (flat_w[:, None] * gathered.float()).reshape(T, k, D)
+    return y.sum(dim=1).to(xf.dtype), aux
+
+
+def _weight_args(params, cfg: ModelConfig):
+    """(names, tensors) of the expert matrices, int8 dicts flattened to
+    ``<name>.q`` / ``<name>.s``; the gate stands in for itself only when
+    the MLP is gated."""
+    names, ts = [], []
+    for name in _EXPERT_MATS:
+        if name == "w_gate" and not cfg.gated_mlp:
+            continue
+        w = params[name]
+        if isinstance(w, dict):
+            names += [f"{name}.q", f"{name}.s"]
+            ts += [w["q"], w["s"]]
+        else:
+            names.append(name)
+            ts.append(w)
+    return names, ts
+
+
+def _weight_tree(names, ts):
+    out: Dict[str, Any] = {}
+    for n, t in zip(names, ts):
+        if "." in n:
+            base, part = n.split(".")
+            out.setdefault(base, {})[part] = t
+        else:
+            out[n] = t
+    return out
+
+
+def _weight_spec(name: str, mp_ax) -> P:
+    """Each rank's expert shard, whole (the FSDP dim gathered): int8
+    scales [E, F], everything else [E, D, F] / [E, F, D]."""
+    return P(mp_ax, None) if name.endswith(".s") else P(mp_ax, None, None)
+
+
+def moe_apply_ep(x, params, cfg: ModelConfig, ax: AxisInfo, *,
+                 seq_sharded: bool, dispatch: str = "all_to_all"):
+    """Expert-parallel MoE.  x: [B, S, D] (a DTensor under ``ax``'s
+    mesh).
+
+    ``seq_sharded``: the residual stream is sharded [B->data, S->model, D]
+    (train/prefill).  Otherwise (decode) tokens are [B->data, 1, D] and each
+    model-row rank takes a sub-slice of the local batch.
+    """
+    import torch.distributed as dist
+    mp, mp_ax, dp = ax.mp_size, ax.model, ax.batch
+    E = cfg.num_experts
+    if E % mp:
+        raise ValueError(f"{E} experts do not divide over {mp} model ranks")
+    mesh = ax.mesh
+    group = mesh.get_group(mp_ax)
+    data_groups = [mesh.get_group(a) for a in (dp or ())]
+    names, ws = _weight_args(params, cfg)
+
+    def fn(x_loc, router_w, *w_loc):
+        w = _weight_tree(names, w_loc)
+        w_gate = w.get("w_gate")
+        B_loc, S_loc, D = x_loc.shape
+        kw = dict(cfg=cfg, mp=mp, group=group, dispatch=dispatch)
+        if seq_sharded:
+            y, aux = _dispatch_combine_local(
+                x_loc.reshape(-1, D), router_w, w_gate, w["w_up"],
+                w["w_down"], **kw)
+            out = y.reshape(B_loc, S_loc, D)
+        else:
+            # split local tokens across the model axis, then all_gather
+            T = B_loc * S_loc
+            pad = (-T) % mp
+            xf = torch.nn.functional.pad(x_loc.reshape(T, D), (0, 0, 0, pad))
+            per = (T + pad) // mp
+            i = dist.get_group_rank(group, dist.get_rank())
+            y, aux = _dispatch_combine_local(
+                xf[i * per:(i + 1) * per], router_w, w_gate, w["w_up"],
+                w["w_down"], **kw)
+            out = all_gather(y, group)[:T].reshape(B_loc, S_loc, D)
+        return out, pmean(aux, [group] + data_groups)
+
+    xs = P(dp, mp_ax if seq_sharded else None, None)
+    w_specs = [_weight_spec(n, mp_ax) for n in names]
+    args = ([reshard(ax, x, *xs), reshard(ax, params["router"], None, None)]
+            + [reshard(ax, t, *s) for t, s in zip(ws, w_specs)])
+    in_specs = [xs, P(None, None)] + w_specs
+    return local_region(ax, fn, in_specs, (xs, P()),
+                        grad_specs=[None] + ["partial"] * (len(ws) + 1))(
+        *args)
+
+
+def _moe_apply_local(x, params, cfg: ModelConfig, ax: AxisInfo):
+    """The served grouped path under a mesh with one model rank: each
+    rank runs its own batch rows, with the experts whole; the router's
+    load-balance statistics are averaged over the data ranks."""
+    mesh = ax.mesh
+    dp = ax.batch
+    data_groups = [mesh.get_group(a) for a in (dp or ())]
+    names, ws = _weight_args(params, cfg)
+
+    def fn(x_loc, router_w, *w_loc):
+        p = {"router": router_w, **_weight_tree(names, w_loc)}
+        return moe_apply_grouped(x_loc, p, cfg,
+                                 mean=lambda t: pmean(t, data_groups))
+
+    xs = P(dp, None, None)
+    w_specs = [P(*[None] * t.ndim) for t in ws]
+    args = ([reshard(ax, x, *xs), reshard(ax, params["router"], None, None)]
+            + [reshard(ax, t, *s) for t, s in zip(ws, w_specs)])
+    return local_region(ax, fn, [xs, P(None, None)] + w_specs, (xs, P()),
+                        grad_specs=[None] + ["partial"] * (len(ws) + 1))(
+        *args)
+
+
+def moe_apply(x, params, cfg: ModelConfig, ax: Optional[AxisInfo] = None, *,
+              seq_sharded: bool = True, dispatch: str = "all_to_all"
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE layer.  Returns (y, aux).  Without a mesh (or on plain
+    tensors), or with one model rank, the served grouped path
+    (:func:`moe_apply_grouped`); with more model ranks the reference's
+    expert-parallel path (:func:`moe_apply_ep`)."""
+    if ax is None or not is_dtensor(x):
+        return moe_apply_grouped(x, params, cfg)
+    if ax.mp_size == 1:
+        return _moe_apply_local(x, params, cfg, ax)
+    return moe_apply_ep(x, params, cfg, ax, seq_sharded=seq_sharded,
+                        dispatch=dispatch)

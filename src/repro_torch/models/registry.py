@@ -3,9 +3,10 @@
 (arctic, llama4), vlm (llama-3.2-vision), audio (whisper), ssm (rwkv6)
 and hybrid (recurrentgemma)).
 
-``build_model(cfg, device=None, long_context=False)`` returns a
-:class:`Model` with ``init(generator)``, ``loss`` (the training loss,
-differentiable), ``logits``, ``prefill``, ``init_cache``,
+``build_model(cfg, device=None, ax=None, long_context=False,
+moe_dispatch="all_to_all")`` returns a :class:`Model` with
+``init(generator)``, ``loss`` (the training loss, differentiable),
+``logits``, ``prefill``, ``init_cache``, ``cache_pspecs``,
 ``decode_step`` and ``input_specs(shape)``.
 ``model_stage_op(model, params, stage)`` wraps one serving stage as a
 ``ModelOp`` for the dataflow.  ``batch`` is a dict: {"tokens",
@@ -60,6 +61,8 @@ from repro_torch.configs.shapes import InputShape
 from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.interop import torch_dtype
 from repro_torch.models import rglru, rwkv6, transformer, whisper
+from repro_torch.models.partition import (AxisInfo, P, all_gather,
+                                          is_dtensor, place, unplace)
 
 _FAMILY_MODULES = {"dense": transformer, "moe": transformer,
                    "vlm": transformer, "ssm": rwkv6, "hybrid": rglru,
@@ -68,35 +71,92 @@ _FAMILY_MODULES = {"dense": transformer, "moe": transformer,
 _LONG_CONTEXT = ("dense", "moe", "vlm")
 
 
-def cross_entropy(logits, labels, *, ignore_id: int = -1):
-    """Mean next-token loss over the labels that are not ``ignore_id``.
-    logits: [B, S, V] (f32); labels: [B, S] int."""
+def _nll_sums(logits, labels, ignore_id: int = -1):
+    """(summed next-token loss, count) over the labels that are not
+    ``ignore_id``."""
     logz = torch.logsumexp(logits, dim=-1)
     mask = labels != ignore_id
     # an ignored label gathers row 0; the mask drops it
     gold = torch.gather(logits, -1, torch.where(mask, labels, 0).long()[
         ..., None])[..., 0]
     maskf = mask.float()
-    nll = (logz - gold) * maskf
-    return nll.sum() / torch.clamp_min(maskf.sum(), 1.0)
+    return ((logz - gold) * maskf).sum(), maskf.sum()
+
+
+def cross_entropy(logits, labels, *, ignore_id: int = -1):
+    """Mean next-token loss over the labels that are not ``ignore_id``.
+    logits: [B, S, V] (f32); labels: [B, S] int.  Logits that are a
+    DTensor (rows split over the mesh, the vocabulary whole) are reduced
+    on each rank's own rows, and the sums added over the ranks that hold
+    different rows: DTensor's own rule for the gather would replicate
+    the logits."""
+    if not is_dtensor(logits):
+        nll, n = _nll_sums(logits, labels, ignore_id)
+    else:
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+        pl = tuple(logits.placements)
+        if any(isinstance(p, Shard) and p.dim == 2 for p in pl):
+            raise ValueError(f"logits split over the vocabulary: {pl}")
+        labels = labels.redistribute(logits.device_mesh, pl)
+        summed = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                       for p in pl)
+        nll, n = local_map(
+            lambda lg, lb: _nll_sums(lg, lb, ignore_id),
+            out_placements=(summed, summed), in_placements=(pl, pl),
+            device_mesh=logits.device_mesh)(logits, labels)
+    return nll / torch.clamp_min(n, 1.0)
+
+
+def last_position(logits):
+    """``logits[:, -1:]``.  Logits whose sequence is split over a mesh
+    dim (a DTensor) give each rank's last row to that dim's group and
+    keep the last rank's: DTensor's own slice would gather every row of
+    [B, S, V] first."""
+    if not is_dtensor(logits):
+        return logits[:, -1:]
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    pl = list(logits.placements)
+    seq = [i for i, p in enumerate(pl) if isinstance(p, Shard) and p.dim == 1]
+    if not seq:
+        return logits[:, -1:]
+    mesh = logits.device_mesh
+    local = logits.to_local()[:, -1:]
+    for i in seq:
+        local = all_gather(local, mesh.get_group(i), dim=1)[:, -1:]
+        pl[i] = Replicate()
+    B, _, V = logits.shape
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=(B, 1, V),
+                              stride=(V, V, 1))
 
 
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
     device: torch.device
+    ax: Optional[AxisInfo] = None
     long_context: bool = False
+    moe_dispatch: str = "all_to_all"
 
     @property
     def mod(self):
         return _FAMILY_MODULES[self.cfg.family]
 
     def _kw(self) -> Dict[str, Any]:
-        return ({"long_context": self.long_context}
-                if self.cfg.family in _LONG_CONTEXT else {})
+        kw: Dict[str, Any] = {"ax": self.ax}
+        if self.cfg.family in _LONG_CONTEXT:
+            kw["long_context"] = self.long_context
+        return kw
+
+    def _step_kw(self) -> Dict[str, Any]:
+        kw = self._kw()
+        if self.cfg.family in _LONG_CONTEXT:
+            kw["moe_dispatch"] = self.moe_dispatch
+        return kw
 
     def _fwd_kw(self, batch) -> Dict[str, Any]:
-        kw = self._kw()
+        kw = self._step_kw()
         if self.cfg.family == "vlm":
             kw["media"] = batch.get("media")
         if self.cfg.family == "audio":
@@ -140,7 +200,7 @@ class Model:
                                          build_cache=True,
                                          cache_len=cache_len,
                                          **self._fwd_kw(batch))
-        return logits[:, -1:], cache
+        return last_position(logits), cache
 
     def init_cache(self, batch: int, cache_len: int,
                    device: DeviceLike = None):
@@ -148,9 +208,32 @@ class Model:
                                    device=device or self.device,
                                    **self._kw())
 
+    # -- a mesh's edges -----------------------------------------------------
+    def placed(self, tree):
+        """Under a mesh, plain batch-leading inputs that every rank holds
+        whole (a dict) as DTensors, batch over data (views: nothing is
+        copied); without one, ``tree`` as it is."""
+        if self.ax is None:
+            return tree
+        return {k: place(t, self.ax.mesh,
+                         P(self.ax.batch, *([None] * (t.dim() - 1))))
+                for k, t in tree.items()}
+
+    def placed_cache(self, cache):
+        """:meth:`placed` for a decode cache, by :meth:`cache_pspecs`."""
+        if self.ax is None:
+            return cache
+        from repro_torch.launch.sharding import distribute
+        return distribute(cache, self.ax.mesh, self.cache_pspecs())
+
+    def cache_pspecs(self):
+        """Partition specs of :meth:`init_cache`'s tree under ``ax``."""
+        kw = self._kw()
+        return self.mod.cache_pspecs(self.cfg, kw.pop("ax"), **kw)
+
     def decode_step(self, params, tokens, pos, cache):
         return self.mod.decode_step(params, tokens, pos, cache, self.cfg,
-                                    **self._kw())
+                                    **self._step_kw())
 
     # -- dry-run specs ---------------------------------------------------------
     def input_specs(self, shape: InputShape) -> Dict[str, Any]:
@@ -179,15 +262,22 @@ class Model:
                 "cache": self.init_cache(B, S, device="meta")}
 
 
-def build_model(cfg: ModelConfig, device: DeviceLike = None, *,
-                long_context: bool = False) -> Model:
+def build_model(cfg: ModelConfig, device: DeviceLike = None,
+                ax: Optional[AxisInfo] = None, *, long_context: bool = False,
+                moe_dispatch: str = "all_to_all") -> Model:
     """The model on ``device`` (the CUDA device unless the caller names
-    another; raises without a card)."""
+    another; raises without a card).  ``ax`` (a mesh's axes) pads the
+    heads to its model axis, as the reference does; the caller places
+    params, inputs and cache as DTensors by ``launch.sharding``'s specs.
+    ``moe_dispatch`` picks the expert-parallel exchange (``all_to_all``
+    or ``allgather``) where the model axis has several ranks."""
     if cfg.family not in _FAMILY_MODULES:
         raise ValueError(f"unknown family {cfg.family!r} (have "
                          f"{sorted(_FAMILY_MODULES)})")
-    return Model(cfg=cfg, device=resolve_device(device),
-                 long_context=long_context)
+    if moe_dispatch not in ("all_to_all", "allgather"):
+        raise ValueError(f"unknown moe_dispatch {moe_dispatch!r}")
+    return Model(cfg=cfg, device=resolve_device(device), ax=ax,
+                 long_context=long_context, moe_dispatch=moe_dispatch)
 
 
 # ---------------------------------------------------------------------------
@@ -317,9 +407,19 @@ def model_stage_op(model: Model, params, stage: str, *,
         return _unflatten(paths, [torch.movedim(l, 0, ax)
                                   for l, ax in zip(leaves, batch_axes)])
 
+    def whole(tree):
+        """A stage's outputs as plain tensors of the whole batch (the
+        table's columns), whatever the mesh split."""
+        if isinstance(tree, dict):
+            return {k: whole(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(whole(v) for v in tree)
+        return unplace(tree)
+
     if stage == "logits":
         def batched(tokens):
-            return model.logits(params, {"tokens": tokens})[:, -1]
+            return whole(model.logits(params, model.placed(
+                {"tokens": tokens})))[:, -1]
 
         fn = _stage_fn(f"{model_name}_logits", ("tokens",), batched, 1)
         names = ["logits"]
@@ -329,8 +429,8 @@ def model_stage_op(model: Model, params, stage: str, *,
                                 device=model.device),)
     elif stage == "prefill":
         def batched(tokens):
-            logits, cache = model.prefill(params, {"tokens": tokens},
-                                          cache_len)
+            logits, cache = whole(model.prefill(
+                params, model.placed({"tokens": tokens}), cache_len))
             tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
             pos = torch.full(tokens.shape[:1], tokens.shape[1],
                              dtype=torch.int32, device=tokens.device)
@@ -345,8 +445,10 @@ def model_stage_op(model: Model, params, stage: str, *,
                                 device=model.device),)
     elif stage == "decode":
         def batched(tok, pos, *leaves):
-            logits, new_cache = model.decode_step(params, tok[:, None], pos,
-                                                  _join(leaves))
+            step = model.placed({"tok": tok[:, None], "pos": pos})
+            logits, new_cache = whole(model.decode_step(
+                params, step["tok"], step["pos"],
+                model.placed_cache(_join(leaves))))
             ntok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
             return (ntok, pos + 1, *_split(new_cache))
 

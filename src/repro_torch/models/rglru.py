@@ -17,6 +17,7 @@ to its attention kernels.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -28,6 +29,10 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.interop import torch_dtype
 from repro_torch.kernels import ref
 from repro_torch.models import layers, transformer
+from repro_torch.models.partition import (AxisInfo, P, dp_axes, gather_fsdp,
+                                          heads_spec, local_region, mp_axis,
+                                          mp_size, reshard, rows, shard,
+                                          vocab_table)
 
 C_SCALE = 8.0  # Griffin's fixed recurrence sharpness
 
@@ -50,19 +55,24 @@ def layout(cfg: ModelConfig) -> Tuple[List[str], int, List[str]]:
 # init
 # ---------------------------------------------------------------------------
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device: DeviceLike = None) -> Dict[str, Any]:
+                device: DeviceLike = None, *, ax: Optional[AxisInfo] = None,
+                **_unused) -> Dict[str, Any]:
     """Random weights with the reference's shapes, types and scales
     (``rglru.py:init_params``): matrices normal(0, 1/sqrt(fan_in)) in
     ``cfg.dtype``, f32 ``lam`` so that ``a = sigmoid(lam)^c`` starts in
     (0.9, 0.999), f32 gate weights at zero, zero rmsnorm scales.  Draws
-    come from ``generator`` (seed 0 when None), not ``jax.random``."""
+    come from ``generator`` (seed 0 when None), not ``jax.random``.
+    Under a mesh the attention heads are padded and replicated to its
+    model axis; ``device="meta"`` gives shapes alone."""
     dev = resolve_device(device)
-    if generator is None:
+    if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     dtype = torch_dtype(cfg.dtype)
     f32 = torch.float32
     D, Fd, R, cw = cfg.d_model, cfg.d_ff, cfg.rnn_dim, cfg.conv_width
-    hd, Hp, Kp = cfg.head_dim, cfg.padded_heads(1), cfg.replicated_kv_heads(1)
+    mp = mp_size(ax)
+    hd = cfg.head_dim
+    Hp, Kp = cfg.padded_heads(mp), cfg.replicated_kv_heads(mp)
     pattern, n_blocks, rest = layout(cfg)
 
     def dense(shape, fan_in):
@@ -81,8 +91,10 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                     "w_down": dense(lead + (Fd, D), Fd)},
         }
         if kind == "rec":
-            u = torch.rand(lead + (R,), generator=generator, dtype=f32,
-                           device=dev) * (0.999 - 0.9) + 0.9
+            u = (torch.empty(lead + (R,), dtype=f32, device=dev)
+                 if dev.type == "meta" else
+                 torch.rand(lead + (R,), generator=generator, dtype=f32,
+                            device=dev) * (0.999 - 0.9) + 0.9)
             uc = u ** (1.0 / C_SCALE)
             p["rec"] = {
                 "wx": dense(lead + (D, R), D),
@@ -146,80 +158,124 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")       # jax.nn.gelu's default
 
 
-def _rec_block_full(x, rp, cfg: ModelConfig, build_cache: bool):
-    """x: [B, T, D] -> (out, state_cache)."""
-    gate = _gelu((x @ rp["wgate"]).float())
-    u = x @ rp["wx"]
-    u, conv_state = _conv1d(u, rp["conv_w"], rp["conv_b"])
+def _rec_core(u, gate, conv_w, conv_b, *gates, cfg: ModelConfig,
+              dtype, conv_state=None, h0=None):
+    """Conv, gates and the linear recurrence ``h_t = a_t h_{t-1} + x_t``
+    on one rank's channels (plain tensors: the kernel's ``ctypes``
+    launch takes nothing else).  ``conv_state``/``h0`` carry a decode
+    step's state.  Returns ((h * gate) in ``dtype``, h_last, conv)."""
+    rp = dict(zip(("lam", "wi_a", "wi_b", "wr_a", "wr_b"), gates))
+    u, conv = _conv1d(u, conv_w, conv_b, conv_state)
     a, x_in = _rglru_gates(u, rp)
-    # linear recurrence h_t = a_t h_{t-1} + x_t
-    if cfg.use_kernels and x.shape[1] > 1:
+    if h0 is not None:
+        h = (a[:, 0] * h0 + x_in[:, 0])[:, None]
+    elif cfg.use_kernels and u.shape[1] > 1:
         from repro_torch.kernels import ops as kops
         h = kops.rglru_scan(a, x_in)
     else:
         h = ref.rglru_scan_ref(a, x_in)
-    y = (h * gate).to(x.dtype) @ rp["wo"]
-    cache = {}
-    if build_cache:
-        cache = {"h": h[:, -1], "conv": conv_state}
-    return y, cache
+    return (h * gate).to(dtype), h[:, -1], conv
 
 
-def _rec_block_step(x, rp, state):
-    """x: [B, 1, D]; state: {h: [B,R] f32, conv: [B,cw-1,R]}."""
+_GATES = ("lam", "wi_a", "wi_b", "wr_a", "wr_b")
+
+
+def _rec_block(x, rp, cfg: ModelConfig, ax, state=None):
+    """x: [B, T, D] -> (out, {h, conv}); ``state`` ({h, conv}) makes it
+    one decode step."""
+    dm, mp = dp_axes(ax), mp_axis(ax)
+    x = reshard(ax, x, dm, None, None)
     gate = _gelu((x @ rp["wgate"]).float())
     u = x @ rp["wx"]
-    u, conv_state = _conv1d(u, rp["conv_w"], rp["conv_b"],
-                            conv_state=state["conv"])
-    a, x_in = _rglru_gates(u, rp)
-    h = a[:, 0] * state["h"] + x_in[:, 0]
-    y = (h[:, None] * gate).to(x.dtype) @ rp["wo"]
-    return y, {"h": h, "conv": conv_state.to(state["conv"].dtype)}
+    if state is None:
+        u = shard(ax, u, dm, None, mp)
+    ch = P(dm, None, mp)
+    args = [reshard(ax, u, *ch), reshard(ax, gate, *ch),
+            reshard(ax, rp["conv_w"], None, mp),
+            *(reshard(ax, rp[n], mp) for n in ("conv_b",) + _GATES)]
+    specs = [ch, ch, P(None, mp)] + [P(mp)] * 6
+    core = functools.partial(_rec_core, cfg=cfg, dtype=x.dtype)
+    if state is not None:
+        def core(*a, _core=core):
+            *a, conv, h0 = a
+            return _core(*a, conv_state=conv, h0=h0)
+        args += [state["conv"], state["h"]]
+        specs += [P(dm, None, mp), P(dm, mp)]
+    yh, h, conv = local_region(ax, core, specs,
+                               (ch, P(dm, mp), P(dm, None, mp)))(*args)
+    return yh @ rp["wo"], {"h": h, "conv": conv}
 
 
-def _attn_full(x, apm, cfg: ModelConfig, positions):
-    B, S, _ = x.shape
-    q, k, v = transformer.project_qkv(x, apm, cfg)
+def _local_attn_core(q, k, v, positions, *, cfg: ModelConfig):
+    """RoPE and the local (windowed) attention on one rank's heads;
+    plain, as in the reference.  Returns (out, k)."""
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
-    chunk = min(1024, S)
+    chunk = min(1024, q.shape[1])
     out = layers.chunked_attention(
         q, k, v, q_positions=positions, k_positions=positions, causal=True,
         window=cfg.sliding_window, chunk_q=chunk, chunk_k=chunk,
         scale=1.0 / math.sqrt(cfg.head_dim))
+    return out, k
+
+
+
+def _attn_full(x, apm, cfg: ModelConfig, ax, positions):
+    B, S, _ = x.shape
+    q, k, v = transformer.project_qkv(
+        reshard(ax, x, dp_axes(ax), None, None), apm, cfg, mp_size(ax))
+    hs = heads_spec(ax)
+    q, k, v = (reshard(ax, t, *hs) for t in (q, k, v))
+    core = functools.partial(_local_attn_core, cfg=cfg)
+    out, k = local_region(ax, core, (hs, hs, hs, None), (hs, hs))(
+        q, k, v, positions)
     return out.reshape(B, S, -1) @ apm["wo"], k, v
 
 
-def _attn_step(x, apm, cfg: ModelConfig, pos, kc, vc, pc):
-    """One-token local attention.  kc/vc: [B,W,Kp,hd] and pc: [B,W] —
-    this layer's slices of the decode step's private cache copy, written
-    IN PLACE at slot ``pos % W``."""
-    B = x.shape[0]
-    q, k, v = transformer.project_qkv(x, apm, cfg)
+def _attn_step_core(q, k, v, pos, kc, vc, pc, *, cfg: ModelConfig):
+    """RoPE, the ring write at slot ``pos % W`` (IN PLACE) and the
+    attention of one decode step, on one rank's rows and heads."""
+    B = q.shape[0]
     q = layers.apply_rope(q, pos[:, None], cfg.rope_theta)
     k = layers.apply_rope(k, pos[:, None], cfg.rope_theta)
     W = kc.shape[1]
     slot = (pos % W).long()
-    b_idx = torch.arange(B, device=x.device)
+    b_idx = torch.arange(B, device=q.device)
     kc[b_idx, slot] = k[:, 0]
     vc[b_idx, slot] = v[:, 0]
     pc[b_idx, slot] = pos.to(pc.dtype)
     out = layers.decode_attention(q, kc, vc, q_position=pos, k_positions=pc,
                                   window=cfg.sliding_window,
                                   scale=1.0 / math.sqrt(cfg.head_dim))
+    return (out,)
+
+
+def _attn_step(x, apm, cfg: ModelConfig, ax, pos, kc, vc, pc):
+    """One-token local attention.  kc/vc: [B,W,Kp,hd] and pc: [B,W] —
+    this layer's slices of the decode step's private cache copy, written
+    IN PLACE at slot ``pos % W``."""
+    B = x.shape[0]
+    q, k, v = transformer.project_qkv(x, apm, cfg, mp_size(ax))
+    hs, dp = heads_spec(ax), dp_axes(ax)
+    q, k, v = (reshard(ax, t, *hs) for t in (q, k, v))
+    core = functools.partial(_attn_step_core, cfg=cfg)
+    (out,) = local_region(ax, core, (hs, hs, hs, P(dp), hs, hs, P(dp, None)),
+                          (hs,))(q, k, v, reshard(ax, pos, dp), kc, vc, pc)
     return out.reshape(B, 1, -1) @ apm["wo"]
 
 
-def _mlp(x, mp):
+def _mlp(x, mp, ax=None):
+    x = reshard(ax, x, dp_axes(ax), None, None)
     h = _gelu((x @ mp["w_gate"]).float()).to(x.dtype) * (x @ mp["w_up"])
     return h @ mp["w_down"]
 
 
 # ---------------------------------------------------------------------------
-def _ring_cache(k, v, positions, cfg: ModelConfig, cache_len):
-    """The prefill's local-attention cache: the last ``keep`` keys
-    scattered to ``slot = position % W`` so decode's ring addressing
-    overwrites the genuinely oldest entries (empty slots hold -1)."""
+def _ring_core(k, v, positions, *, cfg: ModelConfig, cache_len):
+    """The prefill's local-attention cache on one rank's rows and heads:
+    the last ``keep`` keys scattered to ``slot = position % W`` so
+    decode's ring addressing overwrites the genuinely oldest entries
+    (empty slots hold -1)."""
     B, S = k.shape[0], k.shape[1]
     cap = cache_len if cache_len else S
     W = min(cfg.sliding_window, cap) if cfg.sliding_window else cap
@@ -232,42 +288,56 @@ def _ring_cache(k, v, positions, cfg: ModelConfig, cache_len):
     vs[:, slots] = v[:, S - keep:]
     ps = torch.full((B, W), -1, dtype=torch.int32, device=k.device)
     ps[:, slots] = kept_pos.to(torch.int32)
+    return ks, vs, ps
+
+
+def _ring_cache(k, v, positions, cfg: ModelConfig, cache_len, ax=None):
+    hs = heads_spec(ax)
+    core = functools.partial(_ring_core, cfg=cfg, cache_len=cache_len)
+    ks, vs, ps = local_region(ax, core, (hs, hs, None),
+                              (hs, hs, P(dp_axes(ax), None)))(
+        k, v, positions)
     return {"k": ks, "v": vs, "pos": ps}
 
 
 def _apply_layer_full(x, lp, kind: str, cfg, positions, build_cache,
-                      cache_len=None):
+                      cache_len=None, ax=None):
+    lp = gather_fsdp(ax, lp)
     h = layers.apply_norm(x, lp["ln1"], cfg.norm)
     cache = {}
     if kind == "rec":
-        y, cache = _rec_block_full(h, lp["rec"], cfg, build_cache)
+        y, cache = _rec_block(h, lp["rec"], cfg, ax)
+        if not build_cache:
+            cache = {}
     else:
-        y, k, v = _attn_full(h, lp["attn"], cfg, positions)
+        y, k, v = _attn_full(h, lp["attn"], cfg, ax, positions)
         if build_cache:
-            cache = _ring_cache(k, v, positions, cfg, cache_len)
-    x = x + y
+            cache = _ring_cache(k, v, positions, cfg, cache_len, ax)
+    x = x + rows(ax, y)
     h = layers.apply_norm(x, lp["ln2"], cfg.norm)
-    return x + _mlp(h, lp["mlp"]), cache
+    return x + rows(ax, _mlp(h, lp["mlp"], ax)), cache
 
 
-def _apply_layer_step(x, lp, kind: str, cfg, pos, cache):
+def _apply_layer_step(x, lp, kind: str, cfg, pos, cache, ax=None):
     """``cache`` holds views of the step's private copy: a recurrent
     layer's new state and an attention layer's new slot are written into
     them."""
+    lp = gather_fsdp(ax, lp)
     h = layers.apply_norm(x, lp["ln1"], cfg.norm)
     if kind == "rec":
-        y, new = _rec_block_step(h, lp["rec"], cache)
+        y, new = _rec_block(h, lp["rec"], cfg, ax, state=cache)
         cache["h"].copy_(new["h"])
-        cache["conv"].copy_(new["conv"])
+        cache["conv"].copy_(new["conv"].to(cache["conv"].dtype))
     else:
-        y = _attn_step(h, lp["attn"], cfg, pos, cache["k"], cache["v"],
+        y = _attn_step(h, lp["attn"], cfg, ax, pos, cache["k"], cache["v"],
                        cache["pos"])
     x = x + y
     h = layers.apply_norm(x, lp["ln2"], cfg.norm)
-    return x + _mlp(h, lp["mlp"])
+    return x + _mlp(h, lp["mlp"], ax)
 
 
-def forward(params, tokens, cfg: ModelConfig, *, build_cache: bool = False,
+def forward(params, tokens, cfg: ModelConfig, *,
+            ax: Optional[AxisInfo] = None, build_cache: bool = False,
             cache_len: Optional[int] = None, remat: bool = False,
             with_aux: bool = False, **_unused):
     """tokens: [B, S] -> logits [B, S, V]; with ``build_cache`` also the
@@ -279,14 +349,18 @@ def forward(params, tokens, cfg: ModelConfig, *, build_cache: bool = False,
     pattern, n_blocks, rest = layout(cfg)
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-    x = layers.embed_lookup(params["embed"], tokens,
-                            scale_by_dim=cfg.embedding_scale)
+    dp, mp = dp_axes(ax), mp_axis(ax)
+    table = vocab_table(params, ax)
+    x = layers.embed_lookup(table, tokens, scale_by_dim=cfg.embedding_scale)
+    x = shard(ax, x, dp, mp, None)
 
     def block_fn(x, bp):
+        x = shard(ax, x, dp, mp, None)
         caches = {}
         for i, kind in enumerate(pattern):
             x, caches[str(i)] = _apply_layer_full(
-                x, bp[str(i)], kind, cfg, positions, build_cache, cache_len)
+                x, bp[str(i)], kind, cfg, positions, build_cache, cache_len,
+                ax)
         return x, caches
 
     body = layers.remat_block(block_fn) if remat else block_fn
@@ -300,23 +374,24 @@ def forward(params, tokens, cfg: ModelConfig, *, build_cache: bool = False,
     rest_caches = {}
     for j, kind in enumerate(rest):
         x, c = _apply_layer_full(x, params["rest"][str(j)], kind, cfg,
-                                 positions, build_cache, cache_len)
+                                 positions, build_cache, cache_len, ax)
         rest_caches[str(j)] = c
     x = layers.apply_norm(x, params["final_norm"], cfg.norm)
-    logits = layers.unembed(x, params["embed"],
+    logits = layers.unembed(rows(ax, x), table,
                             softcap=cfg.final_logit_softcap)
+    logits = shard(ax, logits, dp, mp, None)
     out = (logits,)
     if build_cache:
         blocks = {i: {n: torch.stack(v) for n, v in c.items()}
                   for i, c in block_caches.items()}
         out += ({"blocks": blocks, "rest": rest_caches},)
     if with_aux:
-        out += (torch.zeros((), dtype=torch.float32, device=x.device),)
+        out += (x.new_zeros((), dtype=torch.float32),)
     return out if len(out) > 1 else logits
 
 
 def _empty_layer_cache(cfg: ModelConfig, kind: str, batch: int,
-                       cache_len: int, lead: Tuple[int, ...], dev):
+                       cache_len: int, lead: Tuple[int, ...], dev, mp=1):
     dtype = torch_dtype(cfg.dtype)
     if kind == "rec":
         R, cw = cfg.rnn_dim, cfg.conv_width
@@ -324,7 +399,7 @@ def _empty_layer_cache(cfg: ModelConfig, kind: str, batch: int,
                                  device=dev),
                 "conv": torch.zeros(lead + (batch, cw - 1, R), dtype=dtype,
                                     device=dev)}
-    Kp, hd = cfg.replicated_kv_heads(1), cfg.head_dim
+    Kp, hd = cfg.replicated_kv_heads(mp), cfg.head_dim
     W = min(cfg.sliding_window, cache_len) if cfg.sliding_window \
         else cache_len
     return {"k": torch.zeros(lead + (batch, W, Kp, hd), dtype=dtype,
@@ -336,18 +411,41 @@ def _empty_layer_cache(cfg: ModelConfig, kind: str, batch: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               device: DeviceLike = None):
+               device: DeviceLike = None, *, ax: Optional[AxisInfo] = None,
+               **_unused):
     """Empty decode cache.  ``device="meta"`` gives shapes and dtypes
     without allocating."""
     dev = resolve_device(device)
     pattern, n_blocks, rest = layout(cfg)
+    mp = mp_size(ax)
     return {
         "blocks": {str(i): _empty_layer_cache(cfg, kind, batch, cache_len,
-                                              (n_blocks,), dev)
+                                              (n_blocks,), dev, mp)
                    for i, kind in enumerate(pattern)},
         "rest": {str(j): _empty_layer_cache(cfg, kind, batch, cache_len, (),
-                                            dev)
+                                            dev, mp)
                  for j, kind in enumerate(rest)},
+    }
+
+
+def cache_pspecs(cfg: ModelConfig, ax: AxisInfo, **_unused):
+    """Partition specs matching :func:`init_cache`: batch over data,
+    channels and KV heads over model."""
+    pattern, _, rest = layout(cfg)
+    dp, mp = ax.batch, ax.model
+
+    def spec(kind, lead):
+        if kind == "rec":
+            return {"h": P(*lead, dp, mp),
+                    "conv": P(*lead, dp, None, mp)}
+        return {"k": P(*lead, dp, None, mp, None),
+                "v": P(*lead, dp, None, mp, None),
+                "pos": P(*lead, dp, None)}
+
+    return {
+        "blocks": {str(i): spec(kind, (None,))
+                   for i, kind in enumerate(pattern)},
+        "rest": {str(j): spec(kind, ()) for j, kind in enumerate(rest)},
     }
 
 
@@ -358,24 +456,27 @@ def _clone(tree):
 
 
 @torch.no_grad()
-def decode_step(params, tokens, pos, cache, cfg: ModelConfig):
+def decode_step(params, tokens, pos, cache, cfg: ModelConfig, *,
+                ax: Optional[AxisInfo] = None, **_unused):
     """tokens: [B, 1]; pos: [B].  Returns (logits [B, 1, V], new cache).
     The input cache is left as it was: the step writes into a copy (the
     reference's ``.at[].set`` is functional, and the cache tensors may be
     views of table columns that other consumers share)."""
     pattern, n_blocks, rest = layout(cfg)
     new_cache = _clone(cache)
-    x = layers.embed_lookup(params["embed"], tokens,
-                            scale_by_dim=cfg.embedding_scale)
+    table = vocab_table(params, ax)
+    x = layers.embed_lookup(table, tokens, scale_by_dim=cfg.embedding_scale)
+    x = shard(ax, x, dp_axes(ax), None, None)
     for j in range(n_blocks):
         bp = layers.layer_slice(params["blocks"], j)
         bc = layers.layer_slice(new_cache["blocks"], j)   # views of the copy
         for i, kind in enumerate(pattern):
-            x = _apply_layer_step(x, bp[str(i)], kind, cfg, pos, bc[str(i)])
+            x = _apply_layer_step(x, bp[str(i)], kind, cfg, pos, bc[str(i)],
+                                  ax)
     for j, kind in enumerate(rest):
         x = _apply_layer_step(x, params["rest"][str(j)], kind, cfg, pos,
-                              new_cache["rest"][str(j)])
+                              new_cache["rest"][str(j)], ax)
     x = layers.apply_norm(x, params["final_norm"], cfg.norm)
-    logits = layers.unembed(x, params["embed"],
+    logits = layers.unembed(rows(ax, x), table,
                             softcap=cfg.final_logit_softcap)
     return logits, new_cache

@@ -18,6 +18,7 @@ reference.  On CPU tensors the kernel wrapper runs its plain version.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
@@ -28,20 +29,25 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.interop import torch_dtype
 from repro_torch.kernels import ref
 from repro_torch.models import layers
+from repro_torch.models.partition import (AxisInfo, P, dp_axes, gather_fsdp,
+                                          local_region, mp_axis, reshard, rows,
+                                          shard, vocab_table)
 
 TM_LORA = 32
 DECAY_LORA = 64
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device: DeviceLike = None) -> Dict[str, Any]:
+                device: DeviceLike = None, **_unused) -> Dict[str, Any]:
     """Random weights with the reference's shapes, types and scales
     (``rwkv6.py:init_params``): f32 mixing vectors uniform in +-0.1, ``u``
     in +-0.5, ``w0`` = -0.5, unit group norm; matrices normal(0,
     1/sqrt(fan_in)) in ``cfg.dtype``.  Draws come from ``generator``
-    (seed 0 when None), not the reference's ``jax.random``."""
+    (seed 0 when None), not the reference's ``jax.random``.  The mesh's
+    model axis changes no shape (the heads are never padded);
+    ``device="meta"`` gives shapes alone."""
     dev = resolve_device(device)
-    if generator is None:
+    if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     dtype = torch_dtype(cfg.dtype)
     D, Fd, L = cfg.d_model, cfg.d_ff, cfg.num_layers
@@ -53,6 +59,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                                  generator=generator, device=dev)
 
     def uniform(shape, s=0.1):
+        if dev.type == "meta":
+            return torch.empty(shape, dtype=f32, device=dev)
         x = torch.rand(shape, generator=generator, dtype=f32, device=dev)
         return x.mul_(2 * s).sub_(s)
 
@@ -98,49 +106,89 @@ def _mm(a, b):
     return a.to(dt) @ b.to(dt)
 
 
-def _ddlerp(x, xprev, lp):
-    """Data-dependent lerp producing the 5 mixed inputs (w,k,v,r,g)."""
+def _lora_mix(xxx, w1, w2):
+    """The 5 low-rank mixing offsets [B, T, 5, D] of ``_ddlerp``."""
+    B, T, _ = xxx.shape
+    low = torch.tanh(_mm(xxx, w1)).reshape(B, T, 5, TM_LORA)
+    return (torch.einsum("btjl,jld->btjd", low,
+                         w2.to(torch.promote_types(low.dtype, w2.dtype))),)
+
+
+def _ddlerp(x, xprev, lp, ax=None):
+    """Data-dependent lerp producing the 5 mixed inputs (w,k,v,r,g).  The
+    low-rank products run on each rank's channels (``local_region``):
+    DTensor's rules left their gradients split over both the batch and
+    the sequence in one folded dim, which no product rule takes."""
     dx = xprev - x
     xxx = x + dx * lp["mu_x"]
-    B, T, D = x.shape
-    low = torch.tanh(_mm(xxx, lp["tm_w1"])).reshape(B, T, 5, TM_LORA)
-    w2 = lp["tm_w2"]
-    mixes = torch.einsum("btjl,jld->btjd", low,
-                         w2.to(torch.promote_types(low.dtype, w2.dtype)))
+    dm, mp = dp_axes(ax), mp_axis(ax)
+    (mixes,) = local_region(
+        ax, _lora_mix, (P(dm, None, None), P(None, None), P(None, None, mp)),
+        (P(dm, None, None, mp),), grad_specs=("partial",) * 3)(
+        reshard(ax, xxx, dm, None, None), reshard(ax, lp["tm_w1"], None, None),
+        reshard(ax, lp["tm_w2"], None, None, mp))
     return [x + dx * (lp["mu_mix"][j] + mixes[:, :, j]) for j in range(5)]
 
 
-def _time_mix(x, xprev, S, lp, cfg: ModelConfig, *, need_state=True):
+def _wkv_core(r4, k4, v4, w4, u, S, *, cfg: ModelConfig, need_state: bool):
+    """The recurrence on one rank's heads (plain tensors: the kernel's
+    ``ctypes`` launch takes nothing else).  Returns (y, S)."""
+    if cfg.use_kernels and r4.shape[1] > 1:
+        from repro_torch.kernels import ops as kops
+        # the kernel covers the zero-state fresh sequence (prefill) and
+        # returns the tail state for the decode cache in the same pass
+        if need_state:
+            return kops.wkv6(r4, k4, v4, w4, u, return_state=True)
+        return kops.wkv6(r4, k4, v4, w4, u), S
+    return ref.wkv6_state_ref(r4, k4, v4, w4, u, S)
+
+
+def _decay(xw, dw1, dw2, w0):
+    """The data-dependent decay ``exp(-exp(w0 + tanh(xw dw1) dw2))``, f32."""
+    decay_low = _mm(torch.tanh(_mm(xw, dw1)), dw2)
+    return (torch.exp(-torch.exp((w0 + decay_low).to(torch.float32))),)
+
+
+def _time_mix(x, xprev, S, lp, cfg: ModelConfig, ax=None, *,
+              need_state=True):
     B, T, D = x.shape
     H, hd = cfg.num_rwkv_heads, cfg.rwkv_head_dim
-    xw, xk, xv, xr, xg = _ddlerp(x, xprev, lp)
+    dm, mp = dp_axes(ax), mp_axis(ax)
+    # whole rows on every model rank ahead of the products
+    x, xprev = (reshard(ax, t, dm, None, None) for t in (x, xprev))
+    xw, xk, xv, xr, xg = (rows(ax, t) for t in _ddlerp(x, xprev, lp, ax))
     f32 = torch.float32
     r = _mm(xr, lp["wr"]).to(f32)
     k = _mm(xk, lp["wk"]).to(f32)
     v = _mm(xv, lp["wv"]).to(f32)
     g = F.silu(_mm(xg, lp["wg"]).to(f32))
-    decay_low = _mm(torch.tanh(_mm(xw, lp["dw1"])), lp["dw2"])
-    w = torch.exp(-torch.exp((lp["w0"] + decay_low).to(f32)))   # [B,T,D]
+    r = shard(ax, r, dm, None, mp)
+    k = shard(ax, k, dm, None, mp)
+    v = shard(ax, v, dm, None, mp)
+    # the decay's low-rank products on each rank's channels, as in
+    # ``_ddlerp``
+    chans = P(dm, None, mp)
+    (w,) = local_region(ax, _decay, (P(dm, None, None), P(None, None),
+                                     P(None, mp), P(mp)), (chans,),
+                        grad_specs=("partial",) * 4)(
+        xw, reshard(ax, lp["dw1"], None, None),
+        reshard(ax, lp["dw2"], None, mp), reshard(ax, lp["w0"], mp))
+    w = shard(ax, w, dm, None, mp)                              # [B,T,D]
     hshape = (B, T, H, hd)
-    r4, k4, v4, w4 = (t.reshape(hshape) for t in (r, k, v, w))
-    u = lp["u"].to(f32)
-    if cfg.use_kernels and T > 1:
-        from repro_torch.kernels import ops as kops
-        # the kernel covers the zero-state fresh sequence (prefill) and
-        # returns the tail state for the decode cache in the same pass
-        if need_state:
-            y, S = kops.wkv6(r4, k4, v4, w4, u, return_state=True)
-        else:
-            y = kops.wkv6(r4, k4, v4, w4, u)
-    else:
-        y, S = ref.wkv6_state_ref(r4, k4, v4, w4, u, S)
+    heads, state = P(dm, None, mp, None), P(dm, mp, None, None)
+    core = functools.partial(_wkv_core, cfg=cfg, need_state=need_state)
+    y, S = local_region(ax, core, (heads,) * 4 + (P(mp, None), state),
+                        (heads, state))(
+        *(t.reshape(hshape) for t in (r, k, v, w)),
+        reshard(ax, lp["u"].to(f32), mp, None), reshard(ax, S, *state))
     y = layers.groupnorm_heads(y.reshape(B, T, D), lp["gn_scale"],
                                lp["gn_bias"], H)
     out = (y * g).to(x.dtype) @ lp["wo"]
     return out, S
 
 
-def _channel_mix(x, xprev, lp):
+def _channel_mix(x, xprev, lp, ax=None):
+    x, xprev = (reshard(ax, t, dp_axes(ax), None, None) for t in (x, xprev))
     dx = xprev - x
     xk = x + dx * lp["cm_mu_k"]
     xr = x + dx * lp["cm_mu_r"]
@@ -153,30 +201,38 @@ def _shift(x, prev):
     return torch.cat([prev[:, None], x[:, :-1]], dim=1)
 
 
-def forward(params, tokens, cfg: ModelConfig, *, build_cache: bool = False,
+def forward(params, tokens, cfg: ModelConfig, *,
+            ax: Optional[AxisInfo] = None, build_cache: bool = False,
             cache_len: Optional[int] = None, remat: bool = False,
             with_aux: bool = False, **_unused):
     """tokens: [B, T] -> logits [B, T, V]; with ``build_cache`` also the
     decode cache {S, tm_shift, cm_shift} stacked over layers, and with
     ``with_aux`` a zero f32 aux loss (the family has no router).
     ``remat`` checkpoints each layer (the reference's plain
-    ``jax.checkpoint``).  Differentiable: the caller picks grad mode."""
+    ``jax.checkpoint``).  Under a mesh (``ax``) the residual stream is
+    split over the sequence, as in the reference, and the recurrence
+    runs on each rank's heads.  Differentiable: the caller picks grad
+    mode."""
     B, T = tokens.shape
     H, hd = cfg.num_rwkv_heads, cfg.rwkv_head_dim
     dtype = torch_dtype(cfg.dtype)
-    x = layers.embed_lookup(params["embed"], tokens)
+    dp, mp = dp_axes(ax), mp_axis(ax)
+    table = vocab_table(params, ax)
+    x = layers.embed_lookup(table, tokens)
+    x = shard(ax, x, dp, mp, None)
 
     def block_fn(x, lp):
-        zeros_shift = torch.zeros((B, x.shape[-1]), dtype=x.dtype,
-                                  device=x.device)
-        S0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
-                         device=x.device)
+        lp = gather_fsdp(ax, lp)
+        x = shard(ax, x, dp, mp, None)
+        zeros_shift = x.new_zeros((B, x.shape[-1]))
+        S0 = x.new_zeros((B, H, hd, hd), dtype=torch.float32)
         h1 = layers.layernorm(x, lp["ln1"]["scale"], lp["ln1"]["bias"])
-        tm_out, S = _time_mix(h1, _shift(h1, zeros_shift), S0, lp, cfg,
+        tm_out, S = _time_mix(h1, _shift(h1, zeros_shift), S0, lp, cfg, ax,
                               need_state=build_cache)
-        x = x + tm_out
+        x = x + rows(ax, tm_out)
         h2 = layers.layernorm(x, lp["ln2"]["scale"], lp["ln2"]["bias"])
-        x = (x + _channel_mix(h2, _shift(h2, zeros_shift), lp)).to(dtype)
+        x = (x + rows(ax, _channel_mix(h2, _shift(h2, zeros_shift), lp,
+                                       ax))).to(dtype)
         cache_out = ({"S": S, "tm_shift": h1[:, -1], "cm_shift": h2[:, -1]}
                      if build_cache else {})
         return x, cache_out
@@ -188,17 +244,18 @@ def forward(params, tokens, cfg: ModelConfig, *, build_cache: bool = False,
         for name, t in cache_out.items():
             caches[name].append(t)
     x = layers.apply_norm(x, params["final_norm"], cfg.norm)
-    logits = layers.unembed(x, params["embed"])
+    logits = layers.unembed(rows(ax, x), table)
+    logits = shard(ax, logits, dp, mp, None)
     out = (logits,)
     if build_cache:
         out += ({k: torch.stack(v) for k, v in caches.items()},)
     if with_aux:
-        out += (torch.zeros((), dtype=torch.float32, device=x.device),)
+        out += (x.new_zeros((), dtype=torch.float32),)
     return out if len(out) > 1 else logits
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               device: DeviceLike = None):
+               device: DeviceLike = None, **_unused):
     """Empty decode cache (stacked over layers).  ``device="meta"`` gives
     shapes and dtypes without allocating."""
     dev = resolve_device(device)
@@ -213,26 +270,39 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     }
 
 
+def cache_pspecs(cfg: ModelConfig, ax: AxisInfo, **_unused):
+    """Partition specs matching :func:`init_cache`: batch over data, the
+    state's heads over model."""
+    dp, mp = ax.batch, ax.model
+    return {"S": P(None, dp, mp, None, None),
+            "tm_shift": P(None, dp, None),
+            "cm_shift": P(None, dp, None)}
+
+
 @torch.no_grad()
-def decode_step(params, tokens, pos, cache, cfg: ModelConfig):
+def decode_step(params, tokens, pos, cache, cfg: ModelConfig, *,
+                ax: Optional[AxisInfo] = None, **_unused):
     """tokens: [B, 1].  Cache: {S, tm_shift, cm_shift} stacked over
     layers.  Returns (logits [B, 1, V], new cache); the input cache is
     left as it was (every layer's state is new, stacked afresh)."""
     dtype = torch_dtype(cfg.dtype)
     new: Dict[str, list] = {"S": [], "tm_shift": [], "cm_shift": []}
-    x = layers.embed_lookup(params["embed"], tokens)
+    table = vocab_table(params, ax)
+    x = layers.embed_lookup(table, tokens)
+    x = shard(ax, x, dp_axes(ax), None, None)
     for j in range(cfg.num_layers):
-        lp = layers.layer_slice(params["blocks"], j)
+        lp = gather_fsdp(ax, layers.layer_slice(params["blocks"], j))
         c = {k: v[j] for k, v in cache.items()}
         h = layers.layernorm(x, lp["ln1"]["scale"], lp["ln1"]["bias"])
-        tm_out, S = _time_mix(h, c["tm_shift"][:, None], c["S"], lp, cfg)
-        x = x + tm_out
+        tm_out, S = _time_mix(h, c["tm_shift"][:, None], c["S"], lp, cfg, ax)
+        x = x + rows(ax, tm_out)
         h2 = layers.layernorm(x, lp["ln2"]["scale"], lp["ln2"]["bias"])
-        x = (x + _channel_mix(h2, c["cm_shift"][:, None], lp)).to(dtype)
+        x = (x + rows(ax, _channel_mix(h2, c["cm_shift"][:, None], lp,
+                                       ax))).to(dtype)
         new["S"].append(S)
         new["tm_shift"].append(h[:, -1])
         new["cm_shift"].append(h2[:, -1])
     x = layers.apply_norm(x, params["final_norm"], cfg.norm)
-    logits = layers.unembed(x, params["embed"])
+    logits = layers.unembed(rows(ax, x), table)
     return logits, {k: torch.stack(v).to(cache[k].dtype)
                     for k, v in new.items()}

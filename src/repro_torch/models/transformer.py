@@ -38,10 +38,18 @@ kernel wrapper refuses CUDA inputs that require grad.
 Cross attention stays plain PyTorch, as in the reference, which calls no
 Pallas kernel there, and so does the MoE layer, whose products the
 reference computes outside any Pallas kernel.
+
+Under a mesh (``ax``, :mod:`repro_torch.models.partition`) the heads are
+padded and the KV heads replicated to the model axis, the params, inputs
+and cache are DTensors, and the reference's ``shard`` sites redistribute
+the residual stream; the attention cores and the ring writes run on each
+rank's local heads in ``local_map`` regions, so the kernels see plain
+tensors.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -51,6 +59,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.interop import torch_dtype
 from repro_torch.models import layers, moe as moe_lib
+from repro_torch.models.partition import (AxisInfo, P, dp_axes, gather_fsdp,
+                                          heads_spec, local_region, mp_axis,
+                                          mp_size, reshard, rows, shard,
+                                          vocab_table)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,8 +114,8 @@ def block_layout(cfg: ModelConfig, *, long_context: bool = False
 # init
 # ---------------------------------------------------------------------------
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device: DeviceLike = None, *, long_context: bool = False
-                ) -> Dict[str, Any]:
+                device: DeviceLike = None, *, ax: Optional[AxisInfo] = None,
+                long_context: bool = False) -> Dict[str, Any]:
     """Random weights with the reference's shapes and scales
     (``transformer.py:init_params``): normal(0, 1/sqrt(fan_in)) matrices,
     normal(0, 1/sqrt(d)) embedding, zero rmsnorm scales, zero f32 cross
@@ -111,14 +123,18 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     ``expert_quant``), in place of the dense MLP.  The draws come from
     ``generator`` (seed 0 when None) on ``device``; they are not the
     reference's ``jax.random`` draws — bridge those with
-    :func:`repro_torch.interop.params_from_numpy`."""
+    :func:`repro_torch.interop.params_from_numpy`.  Under a mesh of model
+    axis ``mp`` the Q heads are padded and the KV heads replicated to a
+    multiple of ``mp`` (``cfg.padded_heads``/``replicated_kv_heads``), as
+    in the reference; ``device="meta"`` gives shapes alone."""
     dev = resolve_device(device)
-    if generator is None:
+    if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     dtype = torch_dtype(cfg.dtype)
     specs, n = block_layout(cfg, long_context=long_context)
     D, hd, F = cfg.d_model, cfg.head_dim, cfg.d_ff
-    Hp, Kp = cfg.padded_heads(1), cfg.replicated_kv_heads(1)
+    mp = mp_size(ax)
+    Hp, Kp = cfg.padded_heads(mp), cfg.replicated_kv_heads(mp)
 
     def dense(shape, fan_in):
         return layers.dense_init(shape, dtype, fan_in=fan_in,
@@ -185,20 +201,21 @@ def _attn_scale(cfg: ModelConfig) -> float:
     return 1.0 / math.sqrt(cfg.head_dim)
 
 
-def project_qkv(x, ap, cfg: ModelConfig):
+
+def project_qkv(x, ap, cfg: ModelConfig, mp: int = 1):
     B, S, _ = x.shape
     hd = cfg.head_dim
-    Hp, Kp = cfg.padded_heads(1), cfg.replicated_kv_heads(1)
+    Hp, Kp = cfg.padded_heads(mp), cfg.replicated_kv_heads(mp)
     q = (x @ ap["wq"]).reshape(B, S, Hp, hd)
     k = (x @ ap["wk"]).reshape(B, S, Kp, hd)
     v = (x @ ap["wv"]).reshape(B, S, Kp, hd)
     return q, k, v
 
 
-def _self_attention_full(x, ap, cfg: ModelConfig, spec: LayerSpec,
-                         positions, chunk: int = 1024):
-    """Full-sequence (prefill) self attention.  Returns (out, k, v)."""
-    q, k, v = project_qkv(x, ap, cfg)
+def _attn_core_full(q, k, v, positions, *, cfg: ModelConfig,
+                    spec: LayerSpec, chunk: int):
+    """RoPE and the attention on one rank's heads (plain tensors: the
+    kernels' ``ctypes`` launch takes nothing else).  Returns (out, k)."""
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
     if cfg.use_kernels:
@@ -215,26 +232,38 @@ def _self_attention_full(x, ap, cfg: ModelConfig, spec: LayerSpec,
             causal=True, window=spec.window,
             softcap=cfg.attn_logit_softcap,
             chunk_q=chunk, chunk_k=chunk, scale=_attn_scale(cfg))
+    return out, k
+
+
+def _self_attention_full(x, ap, cfg: ModelConfig, ax, spec: LayerSpec,
+                         positions, chunk: int = 1024):
+    """Full-sequence (prefill) self attention.  Returns (out, k, v).
+    Under a mesh the attention runs on each rank's local heads
+    (:func:`~repro_torch.models.partition.local_region`)."""
+    q, k, v = project_qkv(rows(ax, x), ap, cfg, mp_size(ax))
+    hs = heads_spec(ax)
+    q = shard(ax, q, *hs)
+    k = shard(ax, k, *hs)
+    v = shard(ax, v, *hs)
+    core = functools.partial(_attn_core_full, cfg=cfg, spec=spec,
+                             chunk=chunk)
+    out, k = local_region(ax, core, (hs, hs, hs, None), (hs, hs))(
+        q, k, v, positions)
     out = out.reshape(x.shape[0], x.shape[1], -1) @ ap["wo"]
     return out, k, v
 
 
-def _self_attention_decode(x, ap, cfg: ModelConfig, spec: LayerSpec, pos,
-                           kc, vc, pc, scales=None):
-    """One-token decode.  x: [B,1,D]; kc/vc: [B,W,Kp,hd] (int8 when
-    ``cfg.kv_quant``, with ``scales`` = (ks, vs) f32 [B,W,Kp]) and pc:
-    [B,W] slot positions (-1 = empty) — this layer's slices of the decode
-    step's private cache copy, written IN PLACE (the caller cloned the
-    cache, so the table columns it came from are never touched).  With
-    ``kv_quant`` the new key and value are quantized into their slot and
-    the whole ring is dequantized before the attention, in the
-    reference's order.  pos: [B].  Returns out."""
-    q, k, v = project_qkv(x, ap, cfg)
+def _decode_core(q, k, v, pos, kc, vc, pc, *scales, cfg: ModelConfig,
+                 spec: LayerSpec):
+    """RoPE, the ring write and the attention of one decode step, on one
+    rank's batch rows and heads.  kc/vc/pc (and the ``kv_quant`` scales)
+    are written IN PLACE: DTensor's own rule for the indexed write would
+    gather the batch first."""
     q = layers.apply_rope(q, pos[:, None], cfg.rope_theta)
     k = layers.apply_rope(k, pos[:, None], cfg.rope_theta)
     W = kc.shape[1]
     slot = (pos % W).long()                                       # [B]
-    b_idx = torch.arange(x.shape[0], device=x.device)
+    b_idx = torch.arange(q.shape[0], device=q.device)
     if cfg.kv_quant:
         ks, vs = scales
         kq, ksc = layers.kv_quantize(k[:, 0])
@@ -263,58 +292,94 @@ def _self_attention_decode(x, ap, cfg: ModelConfig, spec: LayerSpec, pos,
             q, k_read, v_read, q_position=pos, k_positions=pc,
             window=spec.window, softcap=cfg.attn_logit_softcap,
             scale=_attn_scale(cfg))
+    return (out,)
+
+
+def _self_attention_decode(x, ap, cfg: ModelConfig, ax, spec: LayerSpec,
+                           pos, kc, vc, pc, scales=None):
+    """One-token decode.  x: [B,1,D]; kc/vc: [B,W,Kp,hd] (int8 when
+    ``cfg.kv_quant``, with ``scales`` = (ks, vs) f32 [B,W,Kp]) and pc:
+    [B,W] slot positions (-1 = empty) — this layer's slices of the decode
+    step's private cache copy, written IN PLACE (the caller cloned the
+    cache, so the table columns it came from are never touched).  With
+    ``kv_quant`` the new key and value are quantized into their slot and
+    the whole ring is dequantized before the attention, in the
+    reference's order.  pos: [B].  Returns out."""
+    q, k, v = project_qkv(x, ap, cfg, mp_size(ax))
+    hs, dp = heads_spec(ax), dp_axes(ax)
+    q, k, v = (reshard(ax, t, *hs) for t in (q, k, v))
+    args = [q, k, v, reshard(ax, pos, dp), kc, vc, pc]
+    specs = [hs, hs, hs, P(dp), hs, hs, P(dp, None)]
+    if cfg.kv_quant:
+        args += list(scales)
+        specs += [P(dp, None, mp_axis(ax))] * 2
+    core = functools.partial(_decode_core, cfg=cfg, spec=spec)
+    (out,) = local_region(ax, core, specs, (hs,))(*args)
     return out.reshape(x.shape[0], 1, -1) @ ap["wo"]
 
 
-def _cross_attention(x, cp, cfg: ModelConfig, media_kv):
-    """Gated cross attention (plain, as in the reference).  media_kv =
-    (k [B,M,Kp,hd], v [B,M,Kp,hd])."""
-    B, S, _ = x.shape
-    hd, Hp = cfg.head_dim, cfg.padded_heads(1)
-    xq = layers.apply_norm(x, cp["ln"], cfg.norm)
-    q = (xq @ cp["wq"]).reshape(B, S, Hp, hd)
-    mk, mv = media_kv
+def _cross_core(q, mk, mv, *, cfg: ModelConfig):
+    B, S = q.shape[:2]
     M = mk.shape[1]
     out = layers.chunked_attention(
         q, mk, mv,
-        q_positions=torch.zeros((S,), dtype=torch.int32, device=x.device),
-        k_positions=torch.arange(M, dtype=torch.int32, device=x.device),
+        q_positions=torch.zeros((S,), dtype=torch.int32, device=q.device),
+        k_positions=torch.arange(M, dtype=torch.int32, device=q.device),
         causal=False, window=0, softcap=0.0, chunk_q=min(1024, S),
         chunk_k=M, scale=_attn_scale(cfg))
+    return (out,)
+
+
+def _cross_attention(x, cp, cfg: ModelConfig, ax, media_kv):
+    """Gated cross attention (plain, as in the reference).  media_kv =
+    (k [B,M,Kp,hd], v [B,M,Kp,hd])."""
+    B, S, _ = x.shape
+    hd, Hp = cfg.head_dim, cfg.padded_heads(mp_size(ax))
+    xq = rows(ax, layers.apply_norm(x, cp["ln"], cfg.norm))
+    hs = heads_spec(ax)
+    q = reshard(ax, (xq @ cp["wq"]).reshape(B, S, Hp, hd), *hs)
+    mk, mv = (reshard(ax, t, *hs) for t in media_kv)
+    core = functools.partial(_cross_core, cfg=cfg)
+    (out,) = local_region(ax, core, (hs, hs, hs), (hs,))(q, mk, mv)
     out = out.reshape(B, S, -1) @ cp["wo"]
     return torch.tanh(cp["gate"]).to(x.dtype) * out
 
 
-def media_kv_from_embeddings(media, cp, cfg: ModelConfig):
+def media_kv_from_embeddings(media, cp, cfg: ModelConfig, mp: int = 1):
     """Project stub media embeddings [B,M,D] to cross-attn K/V."""
     B, M, _ = media.shape
-    hd, Kp = cfg.head_dim, cfg.replicated_kv_heads(1)
+    hd, Kp = cfg.head_dim, cfg.replicated_kv_heads(mp)
     mk = (media @ cp["wk"]).reshape(B, M, Kp, hd)
     mv = (media @ cp["wv"]).reshape(B, M, Kp, hd)
     return mk, mv
 
 
-def _layer_ffn(x, lp, spec: LayerSpec, cfg: ModelConfig):
+def _layer_ffn(x, lp, spec: LayerSpec, cfg: ModelConfig, ax=None, *,
+               seq_sharded: bool = False, moe_dispatch: str = "all_to_all"):
     """The FFN part: the MLP, or the MoE layer plus its ``aux_mlp``.
     Returns (y, aux): the router's load-balance loss (None for a dense
     layer), which only the training loss reads."""
     if spec.is_moe:
-        y, aux = moe_lib.moe_apply(x, lp["moe"], cfg)
+        y, aux = moe_lib.moe_apply(x, lp["moe"], cfg, ax,
+                                   seq_sharded=seq_sharded,
+                                   dispatch=moe_dispatch)
         if spec.aux_mlp:
-            y = y + layers.mlp_apply(x, lp["aux_mlp"], gated=cfg.gated_mlp,
-                                     act=cfg.act)
+            y = y + rows(ax, layers.mlp_apply(rows(ax, x), lp["aux_mlp"],
+                                              gated=cfg.gated_mlp,
+                                              act=cfg.act))
         return y, aux
-    return (layers.mlp_apply(x, lp["mlp"], gated=cfg.gated_mlp, act=cfg.act),
-            None)
+    return (layers.mlp_apply(rows(ax, x), lp["mlp"], gated=cfg.gated_mlp,
+                             act=cfg.act), None)
 
 
 # ---------------------------------------------------------------------------
 # full-sequence forward (train / prefill)
 # ---------------------------------------------------------------------------
-def forward(params, tokens, cfg: ModelConfig, *, media=None,
-            build_cache: bool = False, cache_len: Optional[int] = None,
-            long_context: bool = False, chunk: int = 1024,
-            remat: bool = False, with_aux: bool = False):
+def forward(params, tokens, cfg: ModelConfig, *, ax: Optional[AxisInfo] = None,
+            media=None, build_cache: bool = False,
+            cache_len: Optional[int] = None, long_context: bool = False,
+            chunk: int = 1024, remat: bool = False, with_aux: bool = False,
+            moe_dispatch: str = "all_to_all"):
     """tokens: [B, S] -> logits [B, S, V].  If ``build_cache`` also returns
     the decode cache (prefill) with ring semantics: a layer of window W
     keeps the last W positions when S >= W, else pads with -1 slots.
@@ -324,42 +389,78 @@ def forward(params, tokens, cfg: ModelConfig, *, media=None,
     loss (f32 scalar) to the result.  ``remat`` checkpoints each block
     under ``cfg.remat_policy`` (:func:`layers.remat_block`).
 
+    Under a mesh (``ax``) the params, tokens and media are DTensors and
+    every ``shard`` site of the reference redistributes the residual
+    stream: batch over data, the sequence over model with
+    ``cfg.seq_shard``, the layer outputs pinned there too with
+    ``cfg.rs_outputs`` (a reduce-scatter of the partial sums).
+
     Differentiable: the caller picks grad mode (the serving entry points
     run under ``torch.no_grad``; the training loss does not)."""
     specs, n_blocks = block_layout(cfg, long_context=long_context)
     B, S = tokens.shape
     dev = tokens.device
     positions = torch.arange(S, dtype=torch.int32, device=dev)
-    x = layers.embed_lookup(params["embed"], tokens,
-                            scale_by_dim=cfg.embedding_scale)
+    dp = dp_axes(ax)
+    seq_ax = mp_axis(ax) if cfg.seq_shard else None
+    table = vocab_table(params, ax)
+    x = layers.embed_lookup(table, tokens, scale_by_dim=cfg.embedding_scale)
+    x = shard(ax, x, dp, seq_ax, None)
+    if media is not None:
+        media = shard(ax, media, dp, None, None)
+    seq_sharded = ax is not None and cfg.seq_shard
+
+    def _out(t):
+        """A layer's output (partial sums over model) summed into the
+        residual's layout: pinned there with ``cfg.rs_outputs`` (a
+        reduce-scatter), else summed into whole rows (an all-reduce),
+        where the reference leaves the choice to XLA.  Either way the
+        backward meets no batch-and-sequence dim split two ways."""
+        if cfg.rs_outputs:
+            return shard(ax, t, dp, seq_ax, None)
+        return rows(ax, t)
 
     def block_fn(x, blk):
         auxes: List[torch.Tensor] = []
         cache_out: Dict[str, torch.Tensor] = {}
+        blk = gather_fsdp(ax, blk)
+        x = shard(ax, x, dp, seq_ax, None)
         for i, spec in enumerate(specs):
             lp = blk[str(i)]
+            # ``cfg.bf16_boundary`` pins the norm's bf16 output with an
+            # XLA barrier in the reference, so that XLA cannot hoist the
+            # f32 upcast above the sequence-parallel all-gather.  Eager
+            # ops run in program order: the gather (``rows``) always moves
+            # the norm's output in the model's dtype, so the port has
+            # nothing to pin, and the barrier changes no value.
             h = layers.apply_norm(x, lp["ln1"], cfg.norm)
-            attn_out, k, v = _self_attention_full(h, lp["attn"], cfg, spec,
-                                                  positions, chunk=chunk)
+            attn_out, k, v = _self_attention_full(h, lp["attn"], cfg, ax,
+                                                  spec, positions,
+                                                  chunk=chunk)
             if cfg.post_norms:
                 attn_out = layers.apply_norm(attn_out, lp["post_ln1"],
                                              cfg.norm)
+            attn_out = _out(attn_out)
             x = x + attn_out
             if spec.has_cross and media is not None:
-                mkv = media_kv_from_embeddings(media, lp["cross"], cfg)
-                x = x + _cross_attention(x, lp["cross"], cfg, mkv)
+                mkv = media_kv_from_embeddings(media, lp["cross"], cfg,
+                                               mp_size(ax))
+                x = x + _out(_cross_attention(x, lp["cross"], cfg, ax, mkv))
                 if build_cache:
                     cache_out[f"ck{i}"], cache_out[f"cv{i}"] = mkv
             h = layers.apply_norm(x, lp["ln2"], cfg.norm)
-            ffn_out, aux = _layer_ffn(h, lp, spec, cfg)
+            ffn_out, aux = _layer_ffn(h, lp, spec, cfg, ax,
+                                      seq_sharded=seq_sharded,
+                                      moe_dispatch=moe_dispatch)
             if cfg.post_norms:
                 ffn_out = layers.apply_norm(ffn_out, lp["post_ln2"], cfg.norm)
+            ffn_out = _out(ffn_out)
             x = x + ffn_out
             if aux is not None:
                 auxes.append(aux)
             if build_cache:
                 cache_out.update(_ring_slots(i, k, v, positions, spec, cfg,
-                                             cache_len))
+                                             cache_len, ax))
         return x, cache_out, auxes
 
     body = (layers.remat_block(block_fn, cfg.remat_policy) if remat
@@ -373,22 +474,24 @@ def forward(params, tokens, cfg: ModelConfig, *, media=None,
         for name, t in cache_out.items():
             caches.setdefault(name, []).append(t)
     x = layers.apply_norm(x, params["final_norm"], cfg.norm)
-    logits = layers.unembed(x, params["embed"],
+    logits = layers.unembed(rows(ax, x), table,
                             softcap=cfg.final_logit_softcap)
+    logits = shard(ax, logits, dp, seq_ax, None)
     out = (logits,)
     if build_cache:
         out += ({k: torch.stack(v) for k, v in caches.items()},)
     if with_aux:
-        out += (torch.stack(auxes).sum() if auxes else torch.zeros(
-            (), dtype=torch.float32, device=dev),)
+        out += (torch.stack(auxes).sum() if auxes else
+                x.new_zeros((), dtype=torch.float32),)
     return out if len(out) > 1 else logits
 
 
-def _ring_slots(i: int, k, v, positions, spec: LayerSpec, cfg: ModelConfig,
-                cache_len: Optional[int]) -> Dict[str, torch.Tensor]:
-    """Layer ``i``'s prefill cache leaves: a layer of window W keeps the
-    last W positions when S >= W, else pads with -1 slots (int8 values
-    and f32 scales under ``kv_quant``)."""
+def _ring_core(k, v, positions, *, i: int, spec: LayerSpec,
+               cfg: ModelConfig, cache_len: Optional[int]):
+    """Layer ``i``'s prefill cache leaves on one rank's rows and heads: a
+    layer of window W keeps the last W positions when S >= W, else pads
+    with -1 slots (int8 values and f32 scales under ``kv_quant``).
+    Returns the leaves in :func:`_ring_names` order."""
     B, S = k.shape[0], k.shape[1]
     W = spec.window if spec.window else (cache_len or S)
     W = min(W, cache_len or S)
@@ -401,29 +504,49 @@ def _ring_slots(i: int, k, v, positions, spec: LayerSpec, cfg: ModelConfig,
         vs = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         ps = torch.cat([positions, torch.full(
             (pad,), -1, dtype=torch.int32, device=k.device)]).expand(B, W)
-    out = {f"pos{i}": ps}
     if cfg.kv_quant:
-        out[f"k{i}"], out[f"ks{i}"] = layers.kv_quantize(ks)
-        out[f"v{i}"], out[f"vs{i}"] = layers.kv_quantize(vs)
-    else:
-        out[f"k{i}"], out[f"v{i}"] = ks, vs
-    return out
+        kq, ksc = layers.kv_quantize(ks)
+        vq, vsc = layers.kv_quantize(vs)
+        return ps, kq, ksc, vq, vsc
+    return ps, ks, vs
+
+
+def _ring_names(i: int, cfg: ModelConfig) -> Tuple[str, ...]:
+    if cfg.kv_quant:
+        return (f"pos{i}", f"k{i}", f"ks{i}", f"v{i}", f"vs{i}")
+    return (f"pos{i}", f"k{i}", f"v{i}")
+
+
+def _ring_slots(i: int, k, v, positions, spec: LayerSpec, cfg: ModelConfig,
+                cache_len: Optional[int], ax=None) -> Dict[str, torch.Tensor]:
+    """Layer ``i``'s prefill cache leaves (:func:`_ring_core`), placed as
+    :func:`cache_pspecs` places them without the block axis."""
+    hs, dp = heads_spec(ax), dp_axes(ax)
+    names = _ring_names(i, cfg)
+    scale = P(dp, None, mp_axis(ax))
+    leaf_spec = {"pos": P(dp, None), "k": hs, "v": hs, "ks": scale,
+                 "vs": scale}
+    outs = [leaf_spec[n.rstrip("0123456789")] for n in names]
+    core = functools.partial(_ring_core, i=i, spec=spec, cfg=cfg,
+                             cache_len=cache_len)
+    return dict(zip(names, local_region(ax, core, (hs, hs, None), outs)(
+        k, v, positions)))
 
 
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               device: DeviceLike = None, *, long_context: bool = False,
-               media_tokens: int = 0):
+               device: DeviceLike = None, *, ax: Optional[AxisInfo] = None,
+               long_context: bool = False, media_tokens: int = 0):
     """Empty decode cache (stacked over blocks): zero K/V (int8 with unit
     f32 scales under ``kv_quant``), -1 positions, and zero media K/V of
     ``media_tokens`` (default ``cfg.num_media_tokens``) rows for each
-    cross layer.  ``device="meta"`` gives shapes and dtypes without
-    allocating."""
+    cross layer; the KV heads replicated to the mesh's model axis.
+    ``device="meta"`` gives shapes and dtypes without allocating."""
     dev = resolve_device(device)
     specs, n_blocks = block_layout(cfg, long_context=long_context)
-    Kp, hd = cfg.replicated_kv_heads(1), cfg.head_dim
+    Kp, hd = cfg.replicated_kv_heads(mp_size(ax)), cfg.head_dim
     dtype = torch_dtype(cfg.dtype)
     kv_dtype = torch.int8 if cfg.kv_quant else dtype
     cache = {}
@@ -449,33 +572,59 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     return cache
 
 
+def cache_pspecs(cfg: ModelConfig, ax: AxisInfo, *,
+                 long_context: bool = False) -> Dict[str, P]:
+    """Partition specs matching :func:`init_cache`: batch over data,
+    KV heads over model."""
+    specs, _ = block_layout(cfg, long_context=long_context)
+    out = {}
+    dp, mp = ax.batch, ax.model
+    for i, spec in enumerate(specs):
+        out[f"k{i}"] = P(None, dp, None, mp, None)
+        out[f"v{i}"] = P(None, dp, None, mp, None)
+        out[f"pos{i}"] = P(None, dp, None)
+        if cfg.kv_quant:
+            out[f"ks{i}"] = P(None, dp, None, mp)
+            out[f"vs{i}"] = P(None, dp, None, mp)
+        if spec.has_cross:
+            out[f"ck{i}"] = P(None, dp, None, mp, None)
+            out[f"cv{i}"] = P(None, dp, None, mp, None)
+    return out
+
+
 #: cache leaves a decode step reads and never writes (the media K/V)
 _READ_ONLY = ("ck", "cv")
 
 
 @torch.no_grad()
 def decode_step(params, tokens, pos, cache, cfg: ModelConfig, *,
-                long_context: bool = False):
+                ax: Optional[AxisInfo] = None, long_context: bool = False,
+                moe_dispatch: str = "all_to_all"):
     """tokens: [B, 1]; pos: [B] absolute position of the new token.
     Returns (logits [B, 1, V], new_cache).  The input cache is left as it
     was: the step writes its new slots into a copy (the reference's
     ``.at[].set`` is functional, and the cache tensors may be views of
     table columns that other consumers share); the media K/V, which no
-    step writes, are passed on as they are."""
+    step writes, are passed on as they are.  Under a mesh the cache
+    leaves are DTensors placed by :func:`cache_pspecs`, and each rank
+    writes its own rows and heads."""
     specs, n_blocks = block_layout(cfg, long_context=long_context)
     new_cache = {k: v if k.startswith(_READ_ONLY) else v.clone()
                  for k, v in cache.items()}
-    x = layers.embed_lookup(params["embed"], tokens,
-                            scale_by_dim=cfg.embedding_scale)
+    dp = dp_axes(ax)
+    table = vocab_table(params, ax)
+    x = layers.embed_lookup(table, tokens, scale_by_dim=cfg.embedding_scale)
+    x = shard(ax, x, dp, None, None)
     for j in range(n_blocks):
-        blk = layers.layer_slice(params["blocks"], j)
+        blk = gather_fsdp(ax, layers.layer_slice(params["blocks"], j))
+        x = shard(ax, x, dp, None, None)
         for i, spec in enumerate(specs):
             lp = blk[str(i)]
             h = layers.apply_norm(x, lp["ln1"], cfg.norm)
             scales = ((new_cache[f"ks{i}"][j], new_cache[f"vs{i}"][j])
                       if cfg.kv_quant else None)
             attn_out = _self_attention_decode(
-                h, lp["attn"], cfg, spec, pos, new_cache[f"k{i}"][j],
+                h, lp["attn"], cfg, ax, spec, pos, new_cache[f"k{i}"][j],
                 new_cache[f"v{i}"][j], new_cache[f"pos{i}"][j], scales)
             if cfg.post_norms:
                 attn_out = layers.apply_norm(attn_out, lp["post_ln1"],
@@ -483,13 +632,14 @@ def decode_step(params, tokens, pos, cache, cfg: ModelConfig, *,
             x = x + attn_out
             if spec.has_cross:
                 mkv = (new_cache[f"ck{i}"][j], new_cache[f"cv{i}"][j])
-                x = x + _cross_attention(x, lp["cross"], cfg, mkv)
+                x = x + _cross_attention(x, lp["cross"], cfg, ax, mkv)
             h = layers.apply_norm(x, lp["ln2"], cfg.norm)
-            ffn_out, _ = _layer_ffn(h, lp, spec, cfg)
+            ffn_out, _ = _layer_ffn(h, lp, spec, cfg, ax,
+                                    moe_dispatch=moe_dispatch)
             if cfg.post_norms:
                 ffn_out = layers.apply_norm(ffn_out, lp["post_ln2"], cfg.norm)
             x = x + ffn_out
     x = layers.apply_norm(x, params["final_norm"], cfg.norm)
-    logits = layers.unembed(x, params["embed"],
+    logits = layers.unembed(rows(ax, x), table,
                             softcap=cfg.final_logit_softcap)
     return logits, new_cache

@@ -233,3 +233,138 @@ def test_training_field_changes_port_as_reference(fields, what,
     else:
         assert port_base == ref_base
         assert port_changed == ref_changed
+
+
+# ---------------------------------------------------------------------------
+# the mesh fields
+# ---------------------------------------------------------------------------
+#: (field overrides) the reference reads only under a mesh
+MESH_FIELDS = [{"seq_shard": False}, {"rs_outputs": True},
+               {"seq_shard": False, "rs_outputs": True}]
+
+
+class _ShapeMesh:
+    """A (data 2, model 4) mesh of shapes alone: the sharding sites run,
+    nothing is placed."""
+    shape = {"data": 2, "model": 4}
+    axis_names = ("data", "model")
+
+
+def _shard_sites(module, monkeypatch, run):
+    """The axes of every ``shard`` call ``run()`` makes in ``module``, a
+    one-name tuple read as the name (as a JAX ``PartitionSpec`` reads
+    it)."""
+    seen = []
+
+    def record(ax, x, *axes):
+        seen.append(tuple(a[0] if isinstance(a, tuple) and len(a) == 1
+                          else a for a in axes))
+        return x
+    monkeypatch.setattr(module, "shard", record)
+    run()
+    return seen
+
+
+def _reference_sites(cfg, monkeypatch):
+    from repro.models.partition import AxisInfo as JaxAxisInfo
+    ax = JaxAxisInfo(mesh=_ShapeMesh(), data=("data",), model="model")
+    model = jax_build(cfg, ax)
+    params = jax.eval_shape(model.init, jax.random.PRNGKey(0))
+    tokens = jax.ShapeDtypeStruct((4, 16), jnp.int32)
+    return _shard_sites(jax_tf, monkeypatch, lambda: jax.eval_shape(
+        lambda p, t: model.logits(p, {"tokens": t}, remat=False),
+        params, tokens))
+
+
+def _port_sites(cfg, monkeypatch):
+    from repro_torch.models.partition import AxisInfo
+    ax = AxisInfo(mesh=_ShapeMesh(), data=("data",), model="model")
+    model = build_model(cfg, "cpu", ax)
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = torch.zeros((4, 16), dtype=torch.int32)
+    return _shard_sites(transformer, monkeypatch, lambda: model.logits(
+        params, {"tokens": tokens}))
+
+
+@pytest.mark.parametrize("fields", MESH_FIELDS,
+                         ids=["+".join(f"{k}={v}" for k, v in f.items())
+                              for f in MESH_FIELDS])
+def test_mesh_field_moves_shard_sites_as_reference(fields, monkeypatch):
+    """Under a mesh ``seq_shard`` and ``rs_outputs`` change where the
+    residual stream and the layer outputs are placed: the port's
+    ``shard`` sites (axes, in order) equal the reference's with the
+    field set and without."""
+    # one layer: the reference's scan traces its block once, the port's
+    # loop runs it once a layer
+    base = dataclasses.replace(jax_tiny("yi-9b"), dtype="float32",
+                               num_layers=1)
+    changed = dataclasses.replace(base, **fields)
+    want_base = _reference_sites(base, monkeypatch)
+    want = _reference_sites(changed, monkeypatch)
+    assert want != want_base
+
+    tbase = dataclasses.replace(get_tiny_config("yi-9b"), dtype="float32",
+                                num_layers=1)
+    assert _port_sites(tbase, monkeypatch) == want_base
+    assert _port_sites(dataclasses.replace(tbase, **fields),
+                       monkeypatch) == want
+
+
+def test_bf16_boundary_changes_no_value():
+    """``bf16_boundary`` pins an XLA optimization barrier in the
+    reference, which changes no value; the port has nothing to pin (see
+    the comment in ``transformer.forward``).  With the field set, each
+    package's logits equal its own without it, and the two packages
+    agree."""
+    import numpy as np
+    from repro_torch.interop import params_from_numpy
+    base = dataclasses.replace(jax_tiny("yi-9b"), dtype="float32")
+    params = jax_build(base).init(jax.random.PRNGKey(0))
+    tokens = np.arange(32, dtype=np.int32).reshape(2, 16) % 500
+    tp = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    outs = {}
+    for flag in (False, True):
+        jcfg = dataclasses.replace(base, bf16_boundary=flag)
+        outs["ref", flag] = np.asarray(jax_build(jcfg).logits(
+            params, {"tokens": jnp.asarray(tokens)}, remat=False)[0])
+        tcfg = dataclasses.replace(get_tiny_config("yi-9b"), dtype="float32",
+                                   bf16_boundary=flag)
+        outs["port", flag] = build_model(tcfg, "cpu").logits(
+            tp, {"tokens": torch.from_numpy(tokens)}).numpy()
+    for side in ("ref", "port"):
+        np.testing.assert_array_equal(outs[side, True], outs[side, False])
+    np.testing.assert_allclose(outs["port", True], outs["ref", True],
+                               rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("factor", [8.0, 1.0, 0.5])
+def test_capacity_factor_drops_as_reference(factor):
+    """``capacity_factor`` sizes the expert-parallel path's buckets: one
+    rank's dispatch (model axis 1, so no collective) drops the same
+    (token, expert) pairs in both packages; a smaller factor drops
+    more."""
+    import numpy as np
+    from repro.models import moe as jax_moe
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(jax_tiny("arctic-480b"), dtype="float32",
+                              capacity_factor=factor)
+    tcfg = dataclasses.replace(get_tiny_config("arctic-480b"),
+                               dtype="float32", capacity_factor=factor)
+    p = jax.tree.map(lambda t: np.asarray(t[0]), jax_moe.moe_init(
+        jax.random.PRNGKey(0), cfg, jnp.float32, 1))
+    x = (np.random.default_rng(0).standard_normal((32, cfg.d_model))
+         * 0.3).astype(np.float32)
+    want, _ = jax_moe._dispatch_combine_local(
+        jnp.asarray(x), p["router"], p["w_gate"], p["w_up"], p["w_down"],
+        cfg=cfg, mp=1, mp_axis="model")
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    got, _ = moe._dispatch_combine_local(
+        torch.from_numpy(x), tp["router"], tp["w_gate"], tp["w_up"],
+        tp["w_down"], cfg=tcfg, mp=1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+    full, _ = moe._dispatch_combine_local(
+        torch.from_numpy(x), tp["router"], tp["w_gate"], tp["w_up"],
+        tp["w_down"], cfg=dataclasses.replace(tcfg, capacity_factor=8.0),
+        mp=1)
+    assert (factor == 8.0) == bool(torch.equal(got, full))
