@@ -33,7 +33,13 @@ ignored):
    rglru_scan: clusters of 2 blocks of 4 warps along T, staged), and
    prints decode's split count.  Both attention kernels also at arctic-
    480b's group of 7 (H=56, K=8, hd=128; the same shapes otherwise), in
-   rows of their own.
+   rows of their own.  Beside the recurrence kernels, the plain path's
+   forms (not kernels; what training and the dry-run run) against the
+   same sequential oracles on the same f32 inputs, with their times:
+   ``wkv_chunked`` at [4, 256, 32, 64] and ``associative_scan`` on RG-
+   LRU's combine at [4, 256, 2560] (``plain_form:`` lines).  yi-9b's
+   flash also at phase 11's eval shape [4, 32, 1024, 128], a row of its
+   own whose launches are the eval step's.
 4. Paths: gemma2-9b (42 layers), yi-9b (48), rwkv6-1.6b (24) and
    recurrentgemma-2b (26) at full width and depth in bf16 with
    ``use_kernels=True``, random
@@ -183,7 +189,18 @@ ignored):
    depth (zero frames, B 4 x S 256, 10 steps); and the entry points
    ``launch.train --arch yi-9b --tiny --steps 50`` (default device) and
    ``train_small`` with its defaults (its checkpoint under ``build/``).
+   Then rwkv6-1.6b (24 layers) and recurrentgemma-2b (26; again with
+   ``lam`` negated) at full width and depth, bf16, AdamW, B 4 x S 1024,
+   10 steps on the plain path (``wkv_chunked``, ``associative_scan``),
+   checked and reported as yi-9b's; the eval step with the kernels on
+   the trained params launches ``wkv6`` 24 times and ``rglru_scan`` 18
+   (once a recurrent layer) and gives the plain loss within rel 0.05;
+   and each family's 2-layer f32 gradients on the card against the CPU
+   under yi-9b's bounds (recurrentgemma with ``lam`` negated).
    Every time is printed beside the card's name and power limit.
+   Phase 12 (``phase_mesh``) serves yi-9b and arctic-480b under a (1, 1)
+   NCCL mesh while ``MESH_DRYRUNS`` trace in subprocesses (rwkv6-1.6b
+   ``train_4k`` at 16x16 among them).
 12. The last line: ``{"ok": true, "device": {...}}``; before it a
    ``kernels`` JSON line (with gemma2-9b's, arctic-480b's, glm4-9b's and
    granite-34b's attention rows) and the nvidia-smi line.  Each phase
@@ -209,6 +226,8 @@ SEED = 0
 BF16_REL, F32_REL = 0.05, 1e-4       # the reference's kernel bars
 SPIN_CYCLES = 500_000                # ~0.3 ms at the H100's clocks
 KERNELS = ("decode_attention", "flash_attention", "wkv6", "rglru_scan")
+#: phase 11's eval step: yi-9b's flash at [TRAIN_B, 32, TRAIN_S, 128]
+TRAIN_EVAL_FLASH = "flash_attention[yi-9b train eval]"
 #: the kernels JSON line's rows: each kernel at its served path's shapes,
 #: and the attention kernels again at gemma2-9b's and arctic-480b's
 KERNEL_ROWS = ("decode_attention", "flash_attention",
@@ -216,7 +235,7 @@ KERNEL_ROWS = ("decode_attention", "flash_attention",
                "flash_attention[gemma2-9b global]", "wkv6", "rglru_scan",
                "decode_attention[arctic-480b]",
                "flash_attention[arctic-480b]", "flash_attention[glm4-9b]",
-               "flash_attention[granite-34b]")
+               "flash_attention[granite-34b]", TRAIN_EVAL_FLASH)
 T_START = time.perf_counter()
 #: per path: arch, depth of the f32 token check, depth at which the bf16
 #: logits of the kernel path are held to the 0.05 bar (None: full).
@@ -496,6 +515,13 @@ def phase_kernels(torch, dev, flush):
         row["shape"] = (f"{arch}: [{B}, {H}, {ENTRY_SEQ}, 128], K {K} "
                         f"(group {H // K}), causal")
         results[row["name"]] = row
+    # yi-9b's flash at phase 11's eval shape (B 4 x S 1024)
+    gt = torch.Generator(device=dev).manual_seed(SEED + TRAIN_S)
+    row = _flash_rows(torch, dev, gt, flush, " train eval", TRAIN_B, 32, 4,
+                      TRAIN_S)["flash_attention train eval"]
+    row["name"] = TRAIN_EVAL_FLASH
+    row["shape"] = f"yi-9b: [{TRAIN_B}, 32, {TRAIN_S}, 128], K 4, causal"
+    results[TRAIN_EVAL_FLASH] = row
     for r in results.values():
         lib = r["library_ms"]
         lib_text = r.get("library_note") or (
@@ -719,6 +745,9 @@ def phase_recurrent_kernels(torch, dev, g, flush):
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.rglru_scan import rglru_scan_plain
     from repro_torch.kernels.wkv6 import wkv6_plain
+    from repro_torch.models import rglru
+    from repro_torch.models.rwkv6 import wkv_chunked
+    from repro_torch.models.scan import associative_scan
 
     results = {}
     # -- wkv6 at r/k/v/w [B, T, H, hd], f32 u, with the final state ----------
@@ -763,6 +792,9 @@ def phase_recurrent_kernels(torch, dev, g, flush):
                 r, k, v, w, u, return_state=True), None, flush),
             "instance": instance,
         }
+        _plain_form_row(torch, "wkv_chunked", lambda: wkv_chunked(
+            r, k, v, w, u), (want_y, want_S), results["wkv6"]["plain_ms"],
+            (B, T, H, hd), flush)
 
     # -- rglru_scan at a, x [B, T, R], zero initial state ------------------
     R = 2560
@@ -797,7 +829,36 @@ def phase_recurrent_kernels(torch, dev, g, flush):
             **spans(torch, lambda: kops.rglru_scan(a, x), None, flush),
             "instance": instance,
         }
+        _plain_form_row(torch, "associative_scan", lambda: associative_scan(
+            rglru._combine, (a, x), dim=1)[1], (want,),
+            results["rglru_scan"]["plain_ms"], (B, T, R), flush)
     return results
+
+
+def _plain_form_row(torch, name, fn, want, sequential_ms, shape, flush):
+    """The plain path's form of a recurrence (what training, the dry-run
+    and the CPU run; not a kernel) against the sequential oracle its
+    kernel is held to, on the same f32 inputs: max abs error, held to the
+    f32 bar, and its time beside the oracle's.  For the record only: no
+    yardstick for the kernels."""
+    got = fn()
+    got = got if isinstance(got, tuple) else (got,)
+    torch.cuda.synchronize()
+    err = max(rel_err(g, w) for g, w in zip(got, want))
+    abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    check(all(bool(torch.isfinite(g).all()) for g in got) and err < F32_REL,
+          f"{name} (plain path) at {list(shape)} f32 against the "
+          f"sequential oracle: rel err {err} < {F32_REL} (max abs "
+          f"{abs_err})")
+    ms = time_ms(torch, fn, iters=5, flush=flush)
+    print(f"  {name} (the plain path's form, not a kernel) at "
+          f"{list(shape)} f32: max abs err {abs_err} against the "
+          f"sequential oracle, {ms:.4f} ms beside the oracle's "
+          f"{sequential_ms:.4f} ms", flush=True)
+    print("plain_form: " + json.dumps({
+        "name": name, "shape": list(shape), "max_abs_err": abs_err,
+        "rel_err": err, "ms": ms, "sequential_ms": sequential_ms}),
+        flush=True)
 
 
 def serve(torch, dev, cfg, calls=3, params=None, ax=None):
@@ -3362,6 +3423,14 @@ SHORT_OPT = {"lr": 3e-4, "warmup_steps": 2}
 GRAD_LAYERS, GRAD_B, GRAD_S = 2, 1, 256
 ACCUM_B, ACCUM_N, ACCUM_STEPS = 8, 4, 10
 WHISPER_B, WHISPER_S, WHISPER_STEPS = 4, 256, 10
+#: the recurrent families at full width and depth, B 4 x S 1024 (arch,
+#: RG-LRU ``lam`` negated): recurrentgemma's decay is about 0 under the
+#: reference's init, so it trains again with a live recurrence; and the
+#: card-vs-CPU gradients of their 2-layer f32 models
+RECURRENT_TRAIN = (("rwkv6-1.6b", False), ("recurrentgemma-2b", False),
+                   ("recurrentgemma-2b", True))
+RECURRENT_STEPS = 10
+RECURRENT_GRAD = (("rwkv6-1.6b", False), ("recurrentgemma-2b", True))
 TRAIN_CKPT = os.path.join(HERE, "build", "train_ckpt")
 
 
@@ -3439,19 +3508,27 @@ def _same_bits(torch, a, b):
 
 
 def phase_training(torch, dev, smi):
-    """Phase 11 (see the module docstring)."""
+    """Phase 11 (see the module docstring).  Returns the flash launches
+    of yi-9b's eval step."""
     from repro_torch.configs import get_config
 
     cfg = dataclasses.replace(get_config("yi-9b"), num_layers=TRAIN_LAYERS)
-    _train_yi(torch, dev, cfg, smi)
+    eval_flash = _train_yi(torch, dev, cfg, smi)
     _release(torch)
-    _train_grad_vs_cpu(torch, dev, smi)
+    _train_grad_vs_cpu(torch, dev, smi, "yi-9b")
     _release(torch)
+    for arch, negate in RECURRENT_TRAIN:
+        _train_recurrent(torch, dev, arch, negate, smi)
+        _release(torch)
+    for arch, negate in RECURRENT_GRAD:
+        _train_grad_vs_cpu(torch, dev, smi, arch, negate)
+        _release(torch)
     _train_accum(torch, dev, cfg, smi)
     _release(torch)
     _train_whisper(torch, dev, smi)
     _release(torch)
     _train_entry_points(torch, dev, smi)
+    return eval_flash
 
 
 def _train_yi(torch, dev, cfg, smi):
@@ -3496,6 +3573,64 @@ def _train_yi(torch, dev, cfg, smi):
           f"{float(got['loss'])} vs plain {float(want['loss'])}: rel {rel}"
           f" <= {BF16_REL}")
     _train_checkpoint(torch, dev, step_fn, state, batches, smi)
+    return launched["flash_attention"]
+
+
+def _train_recurrent(torch, dev, arch, negate, smi):
+    """``arch`` at full width and depth, bf16, AdamW: ``RECURRENT_STEPS``
+    steps on the plain path (``wkv_chunked`` / ``associative_scan``),
+    then the eval step with the kernels on the trained params, which
+    launches the family's recurrence kernel once a recurrent layer and
+    gives the plain eval loss within the bf16 bar.  ``negate``: every
+    RG-LRU ``lam`` negated first (a live recurrence)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, rglru
+    from repro_torch.training import optim, train_step
+
+    cfg = get_config(arch)
+    what = f"{arch}{' lam negated' if negate else ''}"
+    model = build_model(cfg, dev)
+    opt = optim.OptConfig(**SHORT_OPT)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    if negate:
+        params = _negate_lam(params)
+    state = train_step.init_train_state(model, opt_cfg=opt, params=params)
+    del params
+    n_params = sum(p.numel() for p in optim.leaves(state["params"]))
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in optim.leaves(state)) / 1e9
+    logits_gb = TRAIN_B * TRAIN_S * cfg.padded_vocab * 4 / 1e9
+    print(f"  {what}, {cfg.num_layers} layers at full width: {n_params} "
+          f"params, train state {state_gb:.2f} GB (bf16 params, f32 AdamW "
+          f"m and v; with bf16 grads {state_gb + 2 * n_params / 1e9:.2f}),"
+          f" f32 logits {logits_gb:.2f} GB", flush=True)
+    check(state_gb + 2 * n_params / 1e9 + 3 * logits_gb < 75,
+          f"{what}: state, grads and three f32 logits' worth fit the card")
+    step_fn = train_step.make_train_step(model, opt)
+    batches = _lm_batches(torch, dev, cfg.vocab_size, TRAIN_B, TRAIN_S)
+    _, _, steady, peak = _train_steps(torch, dev, step_fn, state, batches,
+                                      RECURRENT_STEPS, smi, f"{what} AdamW")
+    _train_report(cfg, TRAIN_B, TRAIN_S, steady, peak, smi,
+                  f"{what} {cfg.num_layers}L AdamW bf16 remat=nothing")
+
+    batch = next(batches)
+    kern = build_model(dataclasses.replace(cfg, use_kernels=True), dev)
+    _zero_launches()
+    got = train_step.make_eval_step(kern)(state["params"], batch)
+    torch.cuda.synchronize(dev)
+    launched = _launches()
+    want = train_step.make_eval_step(model)(state["params"], batch)
+    rel = abs(float(got["loss"]) - float(want["loss"])) / abs(
+        float(want["loss"]))
+    kernel = {"ssm": "wkv6", "hybrid": "rglru_scan"}[cfg.family]
+    n_rec = (cfg.num_layers if cfg.family == "ssm" else
+             rglru.layer_types(cfg).count("rec"))
+    check(launched == {**{k: 0 for k in KERNELS}, kernel: n_rec},
+          f"{what} eval step with use_kernels=True launched {kernel} once "
+          f"a recurrent layer, {n_rec} times ({launched})")
+    check(rel <= BF16_REL, f"{what} eval loss on the kernel path "
+          f"{float(got['loss'])} vs plain {float(want['loss'])}: rel {rel}"
+          f" <= {BF16_REL}")
 
 
 def _train_checkpoint(torch, dev, step_fn, state, batches, smi):
@@ -3542,10 +3677,11 @@ def _train_checkpoint(torch, dev, step_fn, state, batches, smi):
           f"rel {rel} <= 1e-3")
 
 
-def _train_grad_vs_cpu(torch, dev, smi):
+def _train_grad_vs_cpu(torch, dev, smi, arch, negate=False):
     """The same port code in f32 at full width (2 layers, B 1 x S 256):
     loss and every gradient leaf on the card against the CPU, from params
-    drawn once on the CPU and copied to the card."""
+    drawn once on the CPU and copied to the card (``negate``: every RG-LRU
+    ``lam`` negated)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.training import optim, train_step
@@ -3553,11 +3689,12 @@ def _train_grad_vs_cpu(torch, dev, smi):
     check(not torch.backends.cuda.matmul.allow_tf32
           and torch.get_float32_matmul_precision() == "highest",
           "f32 products on the card run without TF32")
-    cfg = dataclasses.replace(get_config("yi-9b"), num_layers=GRAD_LAYERS,
+    cfg = dataclasses.replace(get_config(arch), num_layers=GRAD_LAYERS,
                               dtype="float32")
     cpu_model = build_model(cfg, "cpu")
-    cpu_params = train_step.trainable(
-        cpu_model.init(torch.Generator().manual_seed(SEED)))
+    params = cpu_model.init(torch.Generator().manual_seed(SEED))
+    cpu_params = train_step.trainable(_negate_lam(params) if negate
+                                      else params)
     dev_params = train_step.trainable(optim.tree_map(
         lambda t: t.detach().to(dev), cpu_params))
     batch = next(_lm_batches(torch, "cpu", cfg.vocab_size, GRAD_B, GRAD_S))
@@ -3572,9 +3709,12 @@ def _train_grad_vs_cpu(torch, dev, smi):
                                                    batch)
     cpu_s = time.perf_counter() - t
     rel = abs(float(d_loss) - float(c_loss)) / abs(float(c_loss))
+    # (a 2-layer recurrentgemma has no blocks: its block leaves are empty)
     ratios = [float((a.cpu() - b).abs().max()) / float(b.abs().max())
-              for a, b in zip(optim.leaves(d_grads), optim.leaves(c_grads))]
-    print(f"  grad on the card vs the CPU: {cfg.param_count()} params, "
+              for a, b in zip(optim.leaves(d_grads), optim.leaves(c_grads))
+              if b.numel()]
+    print(f"  {arch}{' lam negated' if negate else ''} grad on the card "
+          f"vs the CPU: {cfg.param_count()} params, "
           f"card {card_s:.2f} s, CPU {cpu_s:.2f} s ({smi}); worst leaf "
           f"max|d| / max|cpu| {max(ratios):.3e}", flush=True)
     check(rel <= 1e-5, f"f32 loss on the card {float(d_loss)} vs the CPU "
@@ -3740,7 +3880,8 @@ PATH_TOKENS = {}
 MESH_DRYRUNS = (("yi-9b", "train_4k", False),
                 ("arctic-480b", "decode_32k", True),
                 ("gemma2-9b", "long_500k", False),
-                ("whisper-medium", "prefill_32k", False))
+                ("whisper-medium", "prefill_32k", False),
+                ("rwkv6-1.6b", "train_4k", False))
 DRYRUN_TIMEOUT_S = 600
 #: phase 12: arctic-480b's depth (as phase 9 serves it) and the capacity
 #: factors of ``moe_apply_ep`` at mp 1 (8: nothing drops; the config's)
@@ -3930,7 +4071,7 @@ def phase_mesh(torch, dev, smi):
     within 1%.  arctic-480b at full width and 2 layers with
     ``param_pspecs(mode="train")``: tokens equal to phase 9's.
     ``moe_apply_ep`` at mp 1 on arctic's MoE layer (``_ep_rows``).  The
-    four ``MESH_DRYRUNS`` traced in subprocesses meanwhile.  Returns the
+    five ``MESH_DRYRUNS`` traced in subprocesses meanwhile.  Returns the
     yi-9b mesh run's launches of the two attention kernels."""
     import socket
 
@@ -4087,7 +4228,7 @@ def main() -> int:
 
     t0 = _phase("training", t0)
     _release(torch)
-    phase_training(torch, dev, smi)
+    kernels[TRAIN_EVAL_FLASH]["launches"] = phase_training(torch, dev, smi)
     _release(torch)
 
     t0 = _phase("mesh", t0)

@@ -9,8 +9,10 @@ axis first (a Python loop over it replaces ``lax.scan``), ``rest/<j>/...``
 hold the remainder layers unstacked (26 = 8 * 3 + 2).
 
 ``cfg.use_kernels`` sends the prefill's recurrence (``T > 1``) to the
-``rglru_scan`` CUDA kernel; otherwise it runs the sequential f32 loop
-(the reference's ``associative_scan`` computes the same function).  The
+``rglru_scan`` CUDA kernel; otherwise it runs the reference's plain
+path, the log-depth ``associative_scan`` (``models/scan.py``: JAX's
+recursion, bit for bit JAX's run op by op), which training, the dry-run
+and the CPU run.  A decode step is one elementwise step.  The
 local-attention layers use the plain ``layers.chunked_attention`` and
 ``layers.decode_attention``, as the reference does: it never sends them
 to its attention kernels.
@@ -27,12 +29,12 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.interop import torch_dtype
-from repro_torch.kernels import ref
 from repro_torch.models import layers, transformer
 from repro_torch.models.partition import (AxisInfo, P, dp_axes, gather_fsdp,
                                           heads_spec, local_region, mp_axis,
                                           mp_size, reshard, rows, shard,
                                           vocab_table)
+from repro_torch.models.scan import associative_scan
 
 C_SCALE = 8.0  # Griffin's fixed recurrence sharpness
 
@@ -158,6 +160,13 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")       # jax.nn.gelu's default
 
 
+def _combine(c1, c2):
+    """The recurrence's pairs ``(a, h)``, ``c1`` before ``c2``."""
+    a1, b1 = c1
+    a2, b2 = c2
+    return a1 * a2, a2 * b1 + b2
+
+
 def _rec_core(u, gate, conv_w, conv_b, *gates, cfg: ModelConfig,
               dtype, conv_state=None, h0=None):
     """Conv, gates and the linear recurrence ``h_t = a_t h_{t-1} + x_t``
@@ -173,7 +182,7 @@ def _rec_core(u, gate, conv_w, conv_b, *gates, cfg: ModelConfig,
         from repro_torch.kernels import ops as kops
         h = kops.rglru_scan(a, x_in)
     else:
-        h = ref.rglru_scan_ref(a, x_in)
+        _, h = associative_scan(_combine, (a, x_in), dim=1)
     return (h * gate).to(dtype), h[:, -1], conv
 
 

@@ -13,8 +13,11 @@ mixed inputs are f32 and their products with bf16 weights run in f32
 
 ``cfg.use_kernels`` sends the prefill's recurrence (``T > 1``) to the
 ``wkv6`` CUDA kernel, which also returns the final state for the decode
-cache; a decode step is one elementwise step in plain PyTorch, as in the
-reference.  On CPU tensors the kernel wrapper runs its plain version.
+cache; otherwise it runs :func:`wkv_chunked`, the recurrence in chunks
+of 16 steps joined by a log-depth scan, which training, the dry-run and
+the CPU run (the reference compiles one ``lax.scan`` there).  A decode
+step is one elementwise step in plain PyTorch, as in the reference.  On
+CPU tensors the kernel wrapper runs its plain version.
 """
 from __future__ import annotations
 
@@ -27,11 +30,11 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.interop import torch_dtype
-from repro_torch.kernels import ref
 from repro_torch.models import layers
 from repro_torch.models.partition import (AxisInfo, P, dp_axes, gather_fsdp,
                                           local_region, mp_axis, reshard, rows,
                                           shard, vocab_table)
+from repro_torch.models.scan import associative_scan
 
 TM_LORA = 32
 DECAY_LORA = 64
@@ -130,17 +133,94 @@ def _ddlerp(x, xprev, lp, ax=None):
     return [x + dx * (lp["mu_mix"][j] + mixes[:, :, j]) for j in range(5)]
 
 
+def _exclusive(p, dim):
+    """``p`` shifted one step along ``dim`` with a leading 1: the exclusive
+    form of an inclusive ``cumprod``."""
+    ones = torch.ones_like(p.narrow(dim, 0, 1))
+    return torch.cat([ones, p.narrow(dim, 0, p.shape[dim] - 1)], dim=dim)
+
+
+def _combine_states(c1, c2):
+    """Chunk (decay, state) pairs, ``c1`` before ``c2``."""
+    a1, s1 = c1
+    a2, s2 = c2
+    return a1 * a2, a2[..., None] * s1 + s2
+
+
+def wkv_chunked(r, k, v, w, u, state=None, chunk: int = 16):
+    """WKV6 in chunks of ``chunk`` steps, all chunks at once, with the
+    contract of the sequential ``ref.wkv6_state_ref``: r, k, v, w
+    [B, T, H, hd], u [H, hd], state [B, H, hd, hd] or None (zeros).
+    Returns (y [B, T, H, hd], final state), both f32.
+
+    Within a chunk, step t reads step s < t through the decay of the steps
+    between them, ``prod_{s<j<t} w_j``: a product over a mask for each
+    (t, s) pair, never a ratio of prefix products, so decays near 0 lose
+    no digits and a w of exactly 0 gives exact zeros and finite gradients.
+    Each chunk's own state and total decay then pass from chunk to chunk
+    through :func:`associative_scan`, seeded with ``state``, and each step
+    reads its chunk's start state through the decay since the chunk's
+    start.  T is padded to a multiple of ``chunk`` with w = 1 and zero
+    r, k, v, steps that leave the state as it was.  Torch ops only (no
+    value read), so the traced op count grows as O(log T)."""
+    B, T, H, hd = r.shape
+    C = chunk
+    N = -(-T // C)
+    f32 = torch.float32
+    r, k, v, w = (t.to(f32) for t in (r, k, v, w))
+    pad = N * C - T
+    if pad:
+        def padded(t, value):
+            return F.pad(t, (0, 0, 0, 0, 0, pad), value=value)
+        r, k, v = (padded(t, 0.0) for t in (r, k, v))
+        w = padded(w, 1.0)
+    r, k, v, w = (t.reshape(B, N, C, H, hd) for t in (r, k, v, w))
+    # prod_{s<j<t} w_j for every (t, s): row t keeps w_j for j < t, 1 after
+    idx = torch.arange(C, device=r.device)
+    before = (idx[None, :] < idx[:, None])[None, None, :, :, None, None]
+    rows = torch.where(before, w[:, :, None], 1.0)           # [B,N,t,j,H,hd]
+    between = _exclusive(rows.flip(3).cumprod(3), 3).flip(3)  # [B,N,t,s,H,hd]
+    att = torch.einsum("bnthi,bntshi,bnshi->bntsh", r, between, k)
+    att = att * before[..., 0]                               # s < t only
+    bonus = (r * u.to(f32) * k).sum(-1)                      # [B,N,t,H]
+    y = torch.einsum("bntsh,bnshj->bnthj", att, v) + bonus[..., None] * v
+    # each chunk's own state and its total decay
+    after = _exclusive(w.flip(2).cumprod(2), 2).flip(2)      # prod_{j>s}
+    own = torch.einsum("bnshi,bnshj->bnhij", after * k, v)
+    since = w.cumprod(2)                                     # prod_{j<=t}
+    total = since[:, :, -1]                                  # [B,N,H,hd]
+    S0 = (r.new_zeros((B, 1, H, hd, hd)) if state is None
+          else state.to(f32)[:, None])
+    _, ends = associative_scan(
+        _combine_states,
+        (torch.cat([torch.ones_like(total[:, :1]), total], dim=1),
+         torch.cat([S0, own], dim=1)), dim=1)
+    starts = ends[:, :N]                                     # [B,N,H,i,j]
+    y = y + torch.einsum("bnthi,bnhij->bnthj", r * _exclusive(since, 2),
+                         starts)
+    return y.reshape(B, N * C, H, hd)[:, :T], ends[:, N]
+
+
+def _wkv_step(r, k, v, w, u, S):
+    """One decode step of the recurrence (r, k, v, w [B, 1, H, hd])."""
+    kv = k[:, 0, :, :, None] * v[:, 0, :, None, :]           # [B,H,i,j]
+    y = torch.einsum("bhi,bhij->bhj", r[:, 0], S + u[None, :, :, None] * kv)
+    return y[:, None], w[:, 0, :, :, None] * S + kv
+
+
 def _wkv_core(r4, k4, v4, w4, u, S, *, cfg: ModelConfig, need_state: bool):
     """The recurrence on one rank's heads (plain tensors: the kernel's
     ``ctypes`` launch takes nothing else).  Returns (y, S)."""
-    if cfg.use_kernels and r4.shape[1] > 1:
+    if r4.shape[1] == 1:
+        return _wkv_step(r4, k4, v4, w4, u, S)
+    if cfg.use_kernels:
         from repro_torch.kernels import ops as kops
         # the kernel covers the zero-state fresh sequence (prefill) and
         # returns the tail state for the decode cache in the same pass
         if need_state:
             return kops.wkv6(r4, k4, v4, w4, u, return_state=True)
         return kops.wkv6(r4, k4, v4, w4, u), S
-    return ref.wkv6_state_ref(r4, k4, v4, w4, u, S)
+    return wkv_chunked(r4, k4, v4, w4, u, S)
 
 
 def _decay(xw, dw1, dw2, w0):
