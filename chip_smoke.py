@@ -1565,16 +1565,22 @@ def phase_serving(torch, dev, model, params, first_s, smi):
 
 def _part_tracing(dep, traces, t_sub, done):
     """Part 5, on part 1's batched burst: every request's kept trace has
-    the spans admission, queue@, exec@ (linked to its batch), demux@ in
-    order, and its attributed components cover at least 90% of its
-    latency as the caller measured it; the traces go to a Perfetto file
-    under ``build/``."""
+    the spans admission, queue@, exec@ (linked to its batch), the
+    dispatch's upload@ and one step@ a chain step, demux@ in order, and
+    its attributed components cover at least 90% of its latency as the
+    caller measured it; the traces go to a Perfetto file under
+    ``build/``."""
     from repro_torch.obs import attribute, export_chrome
 
     node = dep.function_names[0]
-    names = ["admission", f"queue@{node}", f"exec@{node}", f"demux@{node}"]
+    steps = len(dep.plan.ops[-1].op.ops)
+    row = [f"upload@{node}", *[f"step@{node}"] * steps]
     for i, tr in enumerate(traces):
         got_names = [s.name for s in tr.spans]
+        # a batch the router sent per row uploads and steps once a row
+        rows = max(1, got_names.count(f"upload@{node}"))
+        names = ["admission", f"queue@{node}", f"exec@{node}", *row * rows,
+                 f"demux@{node}"]
         if got_names != names:
             raise SmokeFailure(f"request {i} spans {got_names} != {names}")
         total = sum(b.total_s for b in attribute([tr]).nodes.values())
@@ -1583,7 +1589,8 @@ def _part_tracing(dep, traces, t_sub, done):
             raise SmokeFailure(f"request {i}: attributed {total} s < 90% "
                                f"of its measured {lat} s")
     check(True, f"{len(traces)} kept traces, spans admission, queue@, "
-          f"exec@ (linked to its batch), demux@ of the chain in order; "
+          f"exec@ (linked to its batch), upload@, {steps} step@, demux@ "
+          f"of the chain in order; "
           f"components >= 90% of each request's measured latency")
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     path = os.path.join(HERE, "build", "serving_trace.json")

@@ -50,6 +50,7 @@ from repro_torch.core import operators as ops
 from repro_torch.core.table import DeviceTable, Table, value_key
 from repro_torch.device import resolve_device
 from repro_torch.kernels.build import KernelError
+from repro_torch.obs.trace import scope
 
 #: annotation types treated as "tensor" for lowering.  Deliberately NOT
 #: np.ndarray: the lowered chain emits tensors, so only fns that already
@@ -135,7 +136,8 @@ def _batched_step(fn: Callable) -> Callable:
 
 
 def compose_steps(steps, *, masked_input: bool, with_keep: bool,
-                  batched: bool = False) -> Callable:
+                  batched: bool = False, name: Optional[str] = None
+                  ) -> Callable:
     """The ONE definition of chain composition, shared by the per-row and
     batched executables (the router swaps between them, so their
     keep-mask semantics must be identical): apply maps in sequence, AND
@@ -144,8 +146,12 @@ def compose_steps(steps, *, masked_input: bool, with_keep: bool,
     ``masked_input`` — the callable takes the keep mask as its first
     argument; ``with_keep`` — prepend the final keep to the outputs
     (always true when ``masked_input``); ``batched`` — arguments are
-    stacked rows and each step runs in its batch form."""
+    stacked rows and each step runs in its batch form.  Each step runs
+    in a ``step`` scope (``repro_torch.obs.trace.scope``) named by its
+    function and position; ``name`` (the chain's) stands for the node
+    where no executor recorder is open."""
     steps = tuple(s if isinstance(s, tuple) else ("map", s) for s in steps)
+    ops_named = tuple(getattr(fn, "__name__", kind) for kind, fn in steps)
     if batched:
         steps = tuple((kind, _batched_step(fn)) for kind, fn in steps)
     emit_keep = masked_input or with_keep
@@ -156,14 +162,15 @@ def compose_steps(steps, *, masked_input: bool, with_keep: bool,
             keep, vals = args[0], args[1:]
         else:
             keep, vals = True, args
-        for kind, fn in steps:
-            if kind == "filter":
-                k = fn(*vals)
-                keep = k if keep is True else torch.logical_and(
-                    torch.as_tensor(keep), k)
-            else:
-                out = fn(*vals)
-                vals = out if isinstance(out, tuple) else (out,)
+        for i, (kind, fn) in enumerate(steps):
+            with scope("step", ops_named[i], node=name, index=i):
+                if kind == "filter":
+                    k = fn(*vals)
+                    keep = k if keep is True else torch.logical_and(
+                        torch.as_tensor(keep), k)
+                else:
+                    out = fn(*vals)
+                    vals = out if isinstance(out, tuple) else (out,)
         if not emit_keep:
             return tuple(vals)
         return (torch.as_tensor(keep),) + tuple(vals)
@@ -215,7 +222,8 @@ class JittedFuse(ops.Fuse):
         self._holds_kernels = any(_is_kernel_twin(fn) for _, fn in steps)
         self._sig = chain_signature(self.ops)
         self._row_fn = compose_steps(steps, masked_input=False,
-                                     with_keep=self._has_filter)
+                                     with_keep=self._has_filter,
+                                     name=self.name)
         last_map = next((m for m in reversed(self.ops)
                          if isinstance(m, ops.Map)), None)
         self._out_arity = (len(last_map._schema) if last_map is not None
@@ -254,7 +262,13 @@ class JittedFuse(ops.Fuse):
         """One per-row execution on the chain's device; returns the output
         Row, or None for a row a fused filter dropped."""
         dev = self.dev
-        out = self._row_fn(*(_to_device(v, dev) for v in r.values))
+        with scope("upload", node=self.name, rows=1) as sc:
+            vals = tuple(_to_device(v, dev) for v in r.values)
+        if sc:
+            # a value already on the device moved nothing
+            sc.note(bytes=sum(d.nbytes for v, d in zip(r.values, vals)
+                              if d is not v))
+        out = self._row_fn(*vals)
         with _COUNTS_LOCK:
             self.row_dispatches += 1
         keep = None
@@ -556,9 +570,12 @@ class ExecutableCache:
         self.evictions = 0
 
     def executable(self, sig: Tuple, steps, shapes: Tuple, dtypes: Tuple,
-                   *, masked: bool = False, donate: bool = False) -> Callable:
+                   *, masked: bool = False, donate: bool = False,
+                   name: Optional[str] = None) -> Callable:
         """The batched callable for this (chain, bucket shapes, dtypes).
-        The masked variant takes the boolean liveness column first."""
+        The masked variant takes the boolean liveness column first;
+        ``name`` is the chain's, for its step scopes (the first chain of a
+        signature to build a variant names it)."""
         with self._lock:
             rec = self._fns.get(sig)
             if rec is None:
@@ -578,7 +595,7 @@ class ExecutableCache:
             if fn is None:
                 fn = rec["fns"][variant] = compose_steps(
                     steps, masked_input=masked, with_keep=masked,
-                    batched=True)
+                    batched=True, name=name)
             key = (sig, shapes, dtypes) + variant
             if key in self._entries:
                 self._entries[key] += 1
@@ -705,7 +722,8 @@ class BatchedJittedFuse(JittedFuse):
         dtypes = tuple(str(c.dtype) for c in dt.columns)
         do = bool(donate and dt.donatable)
         fn = EXECUTABLE_CACHE.executable(self._sig, self._steps, shapes,
-                                         dtypes, masked=masked, donate=do)
+                                         dtypes, masked=masked, donate=do,
+                                         name=self.name)
         if masked:
             mask = dt.mask
             if mask is None:
@@ -797,10 +815,13 @@ class BatchedJittedFuse(JittedFuse):
                                    if b <= pol.bucket_cap)
                     if capped and k <= capped[-1]:
                         bucket = bucket_rows(k, capped)
-                dt = DeviceTable.from_columns(
-                    t.schema, cols, [t.rows[i].row_id for i in idxs],
-                    [t.rows[i].group for i in idxs], pad_to=bucket,
-                    grouping=t.grouping, device=self.dev)
+                with scope("upload", node=self.name, rows=k) as sc:
+                    dt = DeviceTable.from_columns(
+                        t.schema, cols, [t.rows[i].row_id for i in idxs],
+                        [t.rows[i].group for i in idxs], pad_to=bucket,
+                        grouping=t.grouping, device=self.dev)
+                if sc:
+                    sc.note(bytes=dt.nbytes)
                 was_fresh = EXECUTABLE_CACHE.misses
                 out_dt = self._run_device(dt, donate=True)
                 vmapped_any = True

@@ -23,6 +23,23 @@ or retried traces are always kept — the traces an operator actually
 asks about.  Kept traces live in a bounded ring (old traces fall off),
 so steady-state memory is constant.
 
+Scopes
+------
+Work inside one dispatch (the chain's upload, each of its steps) is
+timed live on the executor thread by :func:`scope`.  While the executor
+has opened a recorder on the thread (:func:`record_start`, for an item
+with traced members), a scope appends a ``<kind>@<node>`` span to it;
+the recorded spans ride on the attempt's ``done`` log entry and land on
+every traced member beside its ``exec@`` span.  While a
+``torch.profiler`` records, a scope also enters a profiler range named
+``<kind>@<node>:<op>``, so the device trace carries the program's spans
+on its own clock.  The range is a ``_RecordFunctionFast`` (an ordinary
+function scope): a ``record_function`` range is a user scope, which the
+CUDA profiler mirrors into a ``gpu_user_annotation`` event on the device
+track, where a reader of the trace would take it for a kernel.  With
+neither consumer on, a scope costs one thread-local read and one read of
+the profiler's module flag.
+
 Thread-safety: spans are appended from executor callback threads and
 hedge/retry timers; appends are list-atomic under the GIL and the keep
 ring is lock-protected.  All timestamps are ``repro_torch.obs.clock.now``
@@ -34,6 +51,9 @@ import itertools
 import threading
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional
+
+import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from repro_torch.obs.clock import now
 
@@ -309,3 +329,97 @@ class Tracer:
                     "kept": self.kept_count, "buffered": len(self._kept),
                     "batch_spans": len(self._batches),
                     "control_events": len(self._control)}
+
+
+# -- scopes ------------------------------------------------------------------
+
+#: this thread's open recorder: ``(node, spans)`` or None
+_recorder = threading.local()
+
+
+def record_start(node: Optional[str]) -> None:
+    """Open this thread's recorder for the dispatch about to run on it:
+    each :func:`scope` entered until :func:`record_end` records a span
+    ``<kind>@<node>``."""
+    _recorder.rec = (node or "-", [])
+
+
+def record_end() -> Optional[List[Span]]:
+    """Close this thread's recorder; returns its spans in the order they
+    were entered (None when none was open)."""
+    rec = getattr(_recorder, "rec", None)
+    _recorder.rec = None
+    return None if rec is None else rec[1]
+
+
+class _NoScope:
+    """What :func:`scope` returns with neither consumer on: enters
+    nothing, records nothing, and reads false."""
+    __slots__ = ()
+
+    def __enter__(self) -> "_NoScope":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def __bool__(self) -> bool:
+        return False
+
+    def note(self, **attrs) -> None:
+        pass
+
+
+_NO_SCOPE = _NoScope()
+
+
+class _Scope:
+    __slots__ = ("_name", "_span", "_spans", "_range")
+
+    def __init__(self, kind: str, op: Optional[str], node: Optional[str],
+                 attrs: Dict[str, Any], rec, profiling: bool):
+        where = rec[0] if rec is not None else (node or "-")
+        self._span = self._spans = self._range = None
+        if rec is not None:
+            if op is not None:
+                attrs["op"] = op
+            self._span = Span(f"{kind}@{where}", 0.0, 0.0, attrs)
+            self._spans = rec[1]
+        self._name = (f"{kind}@{where}:{op}" if op is not None
+                      else f"{kind}@{where}") if profiling else None
+
+    def __enter__(self) -> "_Scope":
+        if self._name is not None:
+            self._range = torch._C._profiler._RecordFunctionFast(self._name)
+            self._range.__enter__()
+        if self._span is not None:
+            self._spans.append(self._span)
+            self._span.t0 = now()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._span is not None:
+            self._span.t1 = now()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        return False
+
+    def note(self, **attrs) -> None:
+        """Add attrs known only once the scoped work ran (a byte count)."""
+        if self._span is not None:
+            self._span.attrs.update(attrs)
+
+
+def scope(kind: str, op: Optional[str] = None, *, node: Optional[str] = None,
+          span: bool = True, **attrs):
+    """A context manager timing one piece of a dispatch's work (see
+    Scopes in the module docstring).  ``node`` names where it runs when
+    no recorder is open (the recorder's node wins); ``span=False`` makes
+    it a profiler range only.  The manager reads false when it records
+    nothing, so a caller computes attrs for :meth:`note` only when some
+    consumer is on."""
+    rec = getattr(_recorder, "rec", None) if span else None
+    profiling = _autograd_profiler._is_profiler_enabled
+    if rec is None and not profiling:
+        return _NO_SCOPE
+    return _Scope(kind, op, node, attrs, rec, profiling)

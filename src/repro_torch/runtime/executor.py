@@ -55,6 +55,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from repro_torch.core.lowering import DegradePolicy, degraded_execution
 from repro_torch.core.table import copy_capture_end, copy_capture_start
+from repro_torch.obs.trace import record_end, record_start, scope
 from repro_torch.runtime.kvs import KVS, CacheClient
 from repro_torch.runtime.netmodel import NetModel, nbytes
 from repro_torch.serving.admission import DeadlineExceeded
@@ -97,11 +98,15 @@ class WorkItem:
     # observability: every attempt of the logical item (original, crash
     # requeue, hedge, retry clone) appends events to ONE shared log —
     # ("start"|"cancelled"|"requeue", executor_id, t) and
-    # ("done", executor_id, t, queue_s, exec_s, copies) — so the single
-    # winning callback can reconstruct the full attempt history
+    # ("done", executor_id, t, queue_s, exec_s, copies, spans) — so the
+    # single winning callback can reconstruct the full attempt history
+    # (``spans``: the scopes recorded inside the fn, or None)
     attempt_log: List[Tuple] = dataclasses.field(default_factory=list)
     # host<->device copy counts captured around THIS item's execution
     copies: Optional[Dict[str, int]] = None
+    # some member request is traced: the executor records the scopes
+    # (upload, chain steps) run inside the fn, onto the ``done`` entry
+    traced: bool = False
 
     def clone(self) -> "WorkItem":
         """A redispatchable copy sharing this item's completion token and
@@ -113,7 +118,7 @@ class WorkItem:
                         deadline_t=self.deadline_t, degrade=self.degrade,
                         token=self.token, dispatch_key=self.dispatch_key,
                         attempt=self.attempt,
-                        attempt_log=self.attempt_log)
+                        attempt_log=self.attempt_log, traced=self.traced)
 
     def deliver(self, result, error, executor_id: Optional[str]) -> bool:
         """Claim the completion and fire the callback; False if another
@@ -257,6 +262,7 @@ class Executor:
                     self.busy = False
                     self.completed += 1
                     continue
+            spans = None
             try:
                 if fault is not None and fault.kind == "transient":
                     raise self._injector.transient_error(self.id)
@@ -266,27 +272,35 @@ class Executor:
                     if src is not None and src != self.id:
                         self.net.charge(nbytes(t))
                 ctx = ExecutionContext(self, item)
+                node = item.dispatch_key[1] if item.dispatch_key else None
+                if item.traced:
+                    record_start(node)
                 copy_capture_start()
                 try:
-                    if item.degrade is not None:
-                        with degraded_execution(item.degrade):
+                    # the service part of the exec@ span, as a profiler
+                    # range only (the runtime closes the span itself)
+                    with scope("exec", node=node, span=False):
+                        if item.degrade is not None:
+                            with degraded_execution(item.degrade):
+                                result = item.fn(item.tables, ctx)
+                        else:
                             result = item.fn(item.tables, ctx)
-                    else:
-                        result = item.fn(item.tables, ctx)
                 finally:
                     item.copies = copy_capture_end()
+                    if item.traced:
+                        spans = record_end()
                 t_end = time.perf_counter()
                 item.exec_s = t_end - t_start
                 item.attempt_log.append(("done", self.id, t_end,
                                          item.queue_s, item.exec_s,
-                                         item.copies))
+                                         item.copies, spans))
                 item.deliver(result, None, self.id)
             except BaseException as e:
                 t_end = time.perf_counter()
                 item.exec_s = t_end - t_start
                 item.attempt_log.append(("done", self.id, t_end,
                                          item.queue_s, item.exec_s,
-                                         item.copies))
+                                         item.copies, spans))
                 item.deliver(None, e, self.id)
             finally:
                 self.current = None

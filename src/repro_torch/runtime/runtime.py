@@ -103,6 +103,8 @@ def _exec_span_cb(tr: Trace, node_name: str, item, cb,
             attrs["error"] = type(error).__name__
         _trace_exec_events(tr, node_name, log)
         tr.span(f"exec@{node_name}", t_enq, t1, link=link, **attrs)
+        if done is not None and done[6]:
+            tr.spans.extend(done[6])
         cb(result, error, exec_id)
     return wrapped
 
@@ -413,12 +415,12 @@ class Runtime:
         key = None
         if ctx is not None and ctx.req_id is not None:
             key = (ctx.req_id, node.name)
+        tr = ctx.trace if ctx is not None else None
         item = WorkItem(fn=node.fn, tables=tables,
                         produced_on=produced_on, callback=callback,
                         deadline_t=ctx.deadline_t if ctx else None,
                         degrade=ctx.degrade if ctx else None,
-                        dispatch_key=key)
-        tr = ctx.trace if ctx is not None else None
+                        dispatch_key=key, traced=tr is not None)
         if tr is not None:
             item.callback = _exec_span_cb(tr, node.name, item, callback,
                                           _mono())
@@ -822,7 +824,8 @@ class Runtime:
             # across crash requeues / hedges of the whole batch
             item = WorkItem(fn=fn, tables=[big], produced_on=[None],
                             callback=None, deadline_t=batch_deadline,
-                            dispatch_key=(dag_name, node.name, bid))
+                            dispatch_key=(dag_name, node.name, bid),
+                            traced=bool(traced))
 
             # metric series are keyed by (dag, node) so two DAGs sharing a
             # node name don't interleave their histograms (generations of
@@ -854,11 +857,14 @@ class Runtime:
                             base["copies"] = done_e[5]
                     if error is not None:
                         base["error"] = type(error).__name__
+                    scoped = done_e[6] if done_e is not None else None
                     for trc in traced:
                         _trace_exec_events(trc, node.name, log)
                         trc.span(f"exec@{node.name}", t_submit, t_done,
                                  link=bid, executor=exec_id,
                                  batch=len(big.rows), **base)
+                        if scoped:
+                            trc.spans.extend(scoped)
                     buckets = node.batch_buckets or DEFAULT_BUCKETS
                     self.tracer.record_batch(
                         node.name, t_submit, t_done, bid,

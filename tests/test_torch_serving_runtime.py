@@ -135,8 +135,10 @@ def test_batched_cascade_matches_reference_per_prompt(ref, rt):
           "every trace finished")
     for tr in rt.tracer.kept("batched"):
         node = op_name(dep)
+        # the dispatch's upload and each chain step ride beside exec@
         assert [s.name for s in tr.spans] == [
-            "admission", f"queue@{node}", f"exec@{node}", f"demux@{node}"]
+            "admission", f"queue@{node}", f"exec@{node}", f"upload@{node}",
+            *[f"step@{node}"] * (1 + tdc.STEPS), f"demux@{node}"]
         assert tr.spans[2].link is not None
         att = attribute([tr])
         assert sum(nb.total_s for nb in att.nodes.values()) >= \
