@@ -7,9 +7,20 @@ Phases (each passes or the script exits non-zero; nothing is caught and
 ignored):
 
 1. Device: the card's name and power limit.
-2. Build: the four CUDA kernels from ``src/repro_torch/csrc`` with nvcc
+2. Build: the CUDA kernels from ``src/repro_torch/csrc`` with nvcc
    for sm_90a (one nvcc per source, started together).
-3. Kernels: each kernel against its plain PyTorch version at its path's
+3. Kernels: first the decoder layer's fused glue (``phase_glue``):
+   ``add_rmsnorm``, ``gated_act``, ``rope`` and ``rope_cache_write``
+   against their plain versions at yi-9b's serving shapes (decode at B
+   1 and 8 over a 1024-slot ring, prefill at [1, 256] and [8, 256]), in
+   f32 and, timed, in bf16 (``add_rmsnorm`` and ``gated_act`` within one
+   bf16 step, the rotations within 1e-2), one row each with its device
+   time, bytes bound, host time per call and the plain version's, and
+   the launches of its kernel over phase 4's yi-9b run (a ``glue`` JSON
+   line); then full-width yi-9b's prefill and decode step at B 1 and 8
+   with the glue fused and eager: launch calls (profiler), host and
+   device time, and the logits of the two held together.  Then each attention
+   and recurrence kernel against its plain PyTorch version at its path's
    shapes, in bf16 and f32 inputs, plus its time, the plain version's
    time, one PyTorch call's time where one computes the same function
    (``scaled_dot_product_attention`` for the attention kernels, timed
@@ -203,7 +214,8 @@ ignored):
    ``train_4k`` at 16x16 among them).
 12. The last line: ``{"ok": true, "device": {...}}``; before it a
    ``kernels`` JSON line (with gemma2-9b's, arctic-480b's, glm4-9b's and
-   granite-34b's attention rows) and the nvidia-smi line.  Each phase
+   granite-34b's attention rows), the ``glue`` line and the nvidia-smi
+   line.  Each phase
    prints its seconds.
 
 Exits non-zero with no result when CUDA is unavailable or the port's
@@ -226,6 +238,9 @@ SEED = 0
 BF16_REL, F32_REL = 0.05, 1e-4       # the reference's kernel bars
 SPIN_CYCLES = 500_000                # ~0.3 ms at the H100's clocks
 KERNELS = ("decode_attention", "flash_attention", "wkv6", "rglru_scan")
+#: the decoder layer's fused glue (``kernels/glue.py``): their counters are
+#: set to 0 with the kernels' and read where a path's glue is checked
+GLUE = ("add_rmsnorm", "rope", "rope_cache_write", "gated_act")
 #: phase 11's eval step: yi-9b's flash at [TRAIN_B, 32, TRAIN_S, 128]
 TRAIN_EVAL_FLASH = "flash_attention[yi-9b train eval]"
 #: the kernels JSON line's rows: each kernel at its served path's shapes,
@@ -861,6 +876,289 @@ def _plain_form_row(torch, name, fn, want, sequential_ms, shape, flush):
         flush=True)
 
 
+# -- phase 3, the decoder layer's fused glue (kernels/glue.py) ---------------
+
+#: yi-9b's serving shapes for the glue rows: decode at these batches (one
+#: token a row, a 1024-slot ring), prefill at these [B, S]
+GLUE_DECODE_B = (1, 8)
+GLUE_PREFILL = ((1, 256), (8, 256))
+GLUE_ROPE_BAR = 1e-2         # max abs error of the rotated q and k (bf16)
+#: decode steps timed for the step line, after as many warm ones
+GLUE_STEPS = 20
+
+
+def _bf16_ulps(torch, got, want):
+    """The largest distance between two bf16 tensors in steps of the last
+    bit (0 and -0 alike; a sign change counts the steps through 0)."""
+    def key(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((key(got) - key(want)).abs().max())
+
+
+def _glue_row(torch, flush, name, shape, fn, plain, nbytes, err):
+    """A glue kernel's row: its error against the plain version, both
+    timings of :func:`spans`, the plain version's (the eager composition
+    it replaces, on the card: event time and host enqueue time) and the
+    least time by bytes."""
+    row = {"name": name, "route": "cuda", "shape": shape,
+           "source": f"src/repro_torch/csrc/{name.split('[')[0]}.cu",
+           "replaces": "no TPU kernel (XLA fuses this glue in the "
+                       "reference)",
+           **err, **_bound(nbytes, 0, "bfloat16"),
+           **spans(torch, fn, None, flush),
+           "plain_ms": time_ms(torch, plain, flush=flush),
+           "plain_device_ms": time_ms(torch, plain, flush=flush, spin=True),
+           "plain_host_ms": host_ms(torch, plain)}
+    print(f"  {name} at {shape}: {err}; device {row['device_ms']:.4f} ms "
+          f"(bound {row['bound_ms']:.5f} ms by {row['bound_by']}), events "
+          f"{row['ms']:.4f} ms, host {row['host'][0]:.4f} ms a call; plain "
+          f"device {row['plain_device_ms']:.4f} ms, events "
+          f"{row['plain_ms']:.4f} ms, host {row['plain_host_ms']:.4f} ms",
+          flush=True)
+    return row
+
+
+def phase_glue_kernels(torch, dev, flush):
+    """The four fused glue kernels against their plain versions (the
+    eager composition they replace) at yi-9b's serving shapes: in f32
+    (rel err < the f32 bar) and, timed, in bf16: ``add_rmsnorm`` and
+    ``gated_act`` within one bf16 step of the plain output, the rotated q
+    and k within GLUE_ROPE_BAR, the ring written where the plain write
+    writes and nowhere else.  Returns the bf16 rows by name."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import glue
+    from repro_torch.models import transformer
+
+    cfg = get_config("yi-9b")
+    D, F, H, K, hd = (cfg.d_model, cfg.d_ff, cfg.num_heads,
+                      cfg.num_kv_heads, cfg.head_dim)
+    W = CACHE
+    g = torch.Generator(device=dev).manual_seed(SEED + 29)
+    freqs = transformer.rope_table(hd, cfg.rope_theta, dev)
+    rows = {}
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def abs_err(got, want):
+        return float((got.float() - want.float()).abs().max())
+
+    for dtype in (torch.float32, torch.bfloat16):
+        el = torch.empty((), dtype=dtype).element_size()
+        f32 = dtype == torch.float32
+        sizes = [(f"decode B {B}", (B, 1)) for B in GLUE_DECODE_B] + [
+            (f"prefill [{B}, {S}]", (B, S)) for B, S in GLUE_PREFILL]
+        for where, (B, S) in sizes:
+            T = B * S
+            # -- add_rmsnorm: the residual add and the norm after it
+            x, d = randn((B, S, D), dtype), randn((B, S, D), dtype)
+            scale = randn((D,), dtype) * 0.1
+            got = glue.add_rmsnorm(x, d, scale)
+            want = glue.add_rmsnorm_plain(x, d, scale)
+            bare = glue.add_rmsnorm(x, None, scale)[1]
+            bare_want = glue.add_rmsnorm_plain(x, None, scale)[1]
+            torch.cuda.synchronize()
+            if f32:
+                err = max(rel_err(a, b) for a, b in
+                          zip((*got, bare), (*want, bare_want)))
+                check(err < F32_REL, f"add_rmsnorm f32 at {where}: rel err "
+                      f"{err} < {F32_REL}")
+            else:
+                ulps = [_bf16_ulps(torch, a, b) for a, b in
+                        zip((*got, bare), (*want, bare_want))]
+                check(max(ulps) <= 1, f"add_rmsnorm bf16 at {where}: x' "
+                      f"{ulps[0]}, h {ulps[1]}, h without delta {ulps[2]} "
+                      "bf16 steps from the plain version (<= 1)")
+                name = f"add_rmsnorm[{where}]"
+                rows[name] = _glue_row(
+                    torch, flush, name, f"[{B}, {S}, {D}] with delta",
+                    lambda: glue.add_rmsnorm(x, d, scale),
+                    lambda: glue.add_rmsnorm_plain(x, d, scale),
+                    (4 * T * D + D) * el,
+                    {"max_abs_err": abs_err(got[1], want[1]),
+                     "max_ulps": max(ulps[:2])})
+            # -- gated_act: act(gate) * up at the MLP's width
+            gate, up = randn((B, S, F), dtype), randn((B, S, F), dtype)
+            errs = {}
+            for act in ("silu", "gelu"):
+                got = glue.gated_act(gate, up, act)
+                want = glue.gated_act_plain(gate, up, act)
+                torch.cuda.synchronize()
+                if f32:
+                    err = rel_err(got, want)
+                    check(err < F32_REL, f"gated_act {act} f32 at {where}: "
+                          f"rel err {err} < {F32_REL}")
+                    continue
+                errs[act] = (abs_err(got, want),
+                             _bf16_ulps(torch, got, want))
+                check(errs[act][1] <= 1, f"gated_act {act} bf16 at {where}: "
+                      f"{errs[act][1]} bf16 steps from the plain version "
+                      "(<= 1)")
+            if not f32:
+                name = f"gated_act[{where}]"
+                rows[name] = _glue_row(
+                    torch, flush, name, f"[{B}, {S}, {F}] silu",
+                    lambda: glue.gated_act(gate, up, "silu"),
+                    lambda: glue.gated_act_plain(gate, up, "silu"),
+                    3 * T * F * el,
+                    {"max_abs_err": errs["silu"][0],
+                     "max_ulps": errs["silu"][1],
+                     "gelu_max_abs_err": errs["gelu"][0],
+                     "gelu_max_ulps": errs["gelu"][1]})
+            if S > 1:
+                # -- rope: the prefill's q and k at positions 0..S-1
+                q = randn((B, S, H * hd), dtype).view(B, S, H, hd)
+                k = randn((B, S, K * hd), dtype).view(B, S, K, hd)
+                positions = torch.arange(S, dtype=torch.int32, device=dev)
+                got = glue.rope(q, k, positions, freqs)
+                want = glue.rope_plain(q, k, positions, freqs)
+                torch.cuda.synchronize()
+                err = max(abs_err(a, b) for a, b in zip(got, want))
+                bar = F32_REL if f32 else GLUE_ROPE_BAR
+                check(err <= bar, f"rope {dtype} at {where}: max abs err "
+                      f"{err} <= {bar}")
+                if not f32:
+                    name = f"rope[{where}]"
+                    rows[name] = _glue_row(
+                        torch, flush, name, f"q [{B}, {S}, {H}, {hd}], "
+                        f"k [{B}, {S}, {K}, {hd}]",
+                        lambda: glue.rope(q, k, positions, freqs),
+                        lambda: glue.rope_plain(q, k, positions, freqs),
+                        2 * (q.numel() + k.numel()) * el + S * 4 + hd * 2,
+                        {"max_abs_err": err})
+                continue
+            # -- rope_cache_write: a decode step into a ring that has
+            # wrapped in row 0 (pos >= W) and not in the others
+            q = randn((B, 1, H * hd), dtype).view(B, 1, H, hd)
+            k = randn((B, 1, K * hd), dtype).view(B, 1, K, hd)
+            v = randn((B, 1, K * hd), dtype).view(B, 1, K, hd)
+            pos = torch.tensor([W + 37] + [300 + 61 * b for b in
+                                           range(1, B)],
+                               dtype=torch.int32, device=dev)
+            ring = [randn((B, W, K, hd), dtype) for _ in range(2)] + [
+                torch.randint(-1, W, (B, W), generator=g, device=dev,
+                              dtype=torch.int32)]
+            mine = [t.clone() for t in ring]
+            theirs = [t.clone() for t in ring]
+            got = glue.rope_cache_write(q, k, v, pos, *mine, freqs)
+            want = glue.rope_cache_write_plain(q, k, v, pos, *theirs, freqs)
+            torch.cuda.synchronize()
+            err = max(abs_err(a, b) for a, b in
+                      zip((got, mine[0], mine[1]),
+                          (want, theirs[0], theirs[1])))
+            same_pos = bool(torch.equal(mine[2], theirs[2]))
+            same_v = bool(torch.equal(mine[1], theirs[1]))
+            bar = F32_REL if f32 else GLUE_ROPE_BAR
+            check(err <= bar and same_pos and same_v,
+                  f"rope_cache_write {dtype} at {where}: max abs err {err} "
+                  f"<= {bar} (q and the ring), v and positions written "
+                  "exactly")
+            if not f32:
+                name = f"rope_cache_write[{where}]"
+                rows[name] = _glue_row(
+                    torch, flush, name, f"q [{B}, 1, {H}, {hd}], ring "
+                    f"[{B}, {W}, {K}, {hd}]",
+                    lambda: glue.rope_cache_write(q, k, v, pos, *mine,
+                                                  freqs),
+                    lambda: glue.rope_cache_write_plain(q, k, v, pos,
+                                                        *theirs, freqs),
+                    (2 * q.numel() + 4 * k.numel()) * el + 8 * B + hd * 2,
+                    {"max_abs_err": err})
+    return rows
+
+
+def _profile_call(torch, fn):
+    """One ``fn()`` under ``torch.profiler``: its kernel launch calls on
+    the host, as the benchmark counts them (``perfbench/lib/profile.py``:
+    the ``cudaLaunchKernel`` and ``cuLaunchKernel`` families), and the
+    device's busy ms (the kernels' and copies' own device time, summed)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+             "cuLaunchKernelEx")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launches = sum(1 for e in prof.events() if e.name in calls)
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages())
+    return launches, busy_us / 1e3
+
+
+def phase_glue(torch, dev, smi):
+    """Phase 3's glue part: the rows of :func:`phase_glue_kernels` as the
+    ``glue`` JSON line's object (each row's ``launches`` are filled in
+    from phase 4's yi-9b run), then :func:`phase_glue_step`."""
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows = phase_glue_kernels(torch, dev, flush=scratch.zero_)
+    del scratch
+    _release(torch)
+    phase_glue_step(torch, dev, smi)
+    _release(torch)
+    return {"glue": list(rows.values()), "device": smi}
+
+
+def phase_glue_step(torch, dev, smi):
+    """Full-width bf16 yi-9b: one prefill of [1, SEQ] tokens and a decode
+    step at B 1 and B 8, each with the layers' glue fused (the path) and
+    with it eager (``transformer.fused_glue`` patched to False, everything
+    else alike): launch calls and the device's busy ms per call
+    (profiler), the host's enqueue ms and the event ms per call, and the
+    logits of the two against each other."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, transformer
+
+    cfg = dataclasses.replace(get_config("yi-9b"), use_kernels=True)
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    fused = transformer.fused_glue
+    out = {}
+    for B in (1, 8):
+        toks = torch.randint(0, cfg.vocab_size, (B, SEQ), generator=g,
+                             device=dev, dtype=torch.int32)
+        logits, cache = model.prefill(params, {"tokens": toks}, CACHE)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        pos = torch.full((B,), SEQ, dtype=torch.int32, device=dev)
+        calls = {"prefill": lambda: model.prefill(
+                     params, {"tokens": toks}, CACHE),
+                 "decode": lambda: model.decode_step(params, tok, pos,
+                                                     cache)}
+        for what, fn in calls.items():
+            res = {}
+            for mode in ("eager glue", "fused glue"):
+                transformer.fused_glue = (fused if mode == "fused glue"
+                                          else lambda cfg, ax: False)
+                try:
+                    first = fn()
+                    torch.cuda.synchronize()
+                    launches, busy = _profile_call(torch, fn)
+                    host = host_ms(torch, fn, iters=GLUE_STEPS)
+                    ev_ms = time_ms(torch, fn, iters=GLUE_STEPS, warmup=1)
+                finally:
+                    transformer.fused_glue = fused
+                res[mode] = {"launch_calls": launches, "host_ms": host,
+                             "device_busy_ms": busy, "ms": ev_ms,
+                             "logits": first[0][:, -1].float()}
+            gap = rel_err(res["fused glue"]["logits"],
+                          res["eager glue"]["logits"])
+            check(gap < BF16_REL, f"yi-9b {what} B {B}: fused glue's "
+                  f"logits within rel {BF16_REL} of the eager glue's "
+                  f"({gap})")
+            for mode, r in res.items():
+                r.pop("logits")
+                print(f"  yi-9b {what} B {B}, {mode}: {r['launch_calls']} "
+                      f"launch calls, host {r['host_ms']:.3f} ms, device "
+                      f"busy {r['device_busy_ms']:.3f} ms, events "
+                      f"{r['ms']:.3f} ms", flush=True)
+            out[f"{what} B {B}"] = {**res, "logit_rel_gap": gap}
+    print("glue_step: " + json.dumps({"device": smi, "calls": out}),
+          flush=True)
+    del model, params, cache
+
+
 def serve(torch, dev, cfg, calls=3, params=None, ax=None):
     """Compile the cascade for ``cfg`` on a card Runtime and answer the
     same ``PROMPTS`` x ``SEQ`` batch ``calls`` times, with every kernel's
@@ -935,6 +1233,33 @@ def expected_launches(cfg, prefills, steps):
     return want
 
 
+def expected_glue(cfg, prefills, steps, ax=None):
+    """Launches of each fused glue kernel over ``prefills`` dispatches of
+    the cascade (a prefill and ``steps`` decode steps each): where
+    ``transformer.fused_glue`` holds (a transformer family), a prefill and
+    a decode step each run ``add_rmsnorm`` at every norm (two a layer,
+    four with post norms, and the final one) and ``gated_act`` at every
+    gated MLP (a layer's own, a MoE layer's ``aux_mlp``), a prefill one
+    ``rope`` a layer and a decode step one ``rope_cache_write``; the other
+    families, and a transformer under a mesh, run none."""
+    from repro_torch.models import transformer
+
+    want = dict.fromkeys(GLUE, 0)
+    if (cfg.family not in ("dense", "moe", "vlm")
+            or not transformer.fused_glue(cfg, ax)):
+        return want
+    specs, blocks = transformer.block_layout(cfg)
+    L = blocks * len(specs)
+    calls = prefills * (1 + steps)
+    want["add_rmsnorm"] = ((4 if cfg.post_norms else 2) * L + 1) * calls
+    if cfg.gated_mlp:
+        want["gated_act"] = blocks * sum(
+            1 for sp in specs if not sp.is_moe or sp.aux_mlp) * calls
+    want["rope"] = L * prefills
+    want["rope_cache_write"] = L * steps * prefills
+    return want
+
+
 def phase_path(torch, dev, arch, f32_layers, logits_layers, keep=False,
                layers=None):
     """Serve ``arch`` at full width and depth (or ``layers`` deep, a cut
@@ -945,8 +1270,8 @@ def phase_path(torch, dev, arch, f32_layers, logits_layers, keep=False,
     that is set, and then at full depth to the plain path's own gap under
     a last-bit change; a MoE model holds the bar on the token rows whose
     routes the two paths share (``moe_kernel_vs_plain``).  Returns the
-    bf16 run's launches, its flash launches with a window (the local
-    layers) and, with ``keep``, (its model, params, first-call latency in
+    bf16 run's launches, its fused glue kernels' launches, its flash
+    launches with a window (the local layers) and, with ``keep``, (its model, params, first-call latency in
     s, and the steady call in s) for the serving phases, else None."""
     from repro_torch.configs import get_config
     from repro_torch.examples import decode_cascade as dc
@@ -968,6 +1293,7 @@ def phase_path(torch, dev, arch, f32_layers, logits_layers, keep=False,
     held = torch.cuda.memory_allocated(dev)
     model, params, toks, got, lats, retraces, dispatches, launches = serve(
         torch, dev, cfg)
+    glue_n = _glue_launches()        # set to 0 with the kernels' by serve
     windowed = kops.flash_attention.windowed_launches
     nparams = sum(t.numel() for t in _leaves(params))
     peak = torch.cuda.max_memory_allocated(dev)
@@ -982,6 +1308,11 @@ def phase_path(torch, dev, arch, f32_layers, logits_layers, keep=False,
     check(runs > 0 and launches == want,
           f"launches {launches} == {want} for {runs} prefill dispatches "
           f"x {STEPS} decode steps")
+    want = expected_glue(cfg, runs, STEPS)
+    print(f"  fused glue launches {glue_n}", flush=True)
+    check(glue_n == want, f"fused glue launches {glue_n} == {want} for "
+          f"{runs} prefill dispatches x {STEPS} decode steps")
+    PATH_DISPATCHES[cfg.name] = runs
     if cfg.family == "dense":
         specs, blocks = transformer.block_layout(cfg)
         local = blocks * sum(1 for sp in specs if sp.window) * runs
@@ -1068,7 +1399,7 @@ def phase_path(torch, dev, arch, f32_layers, logits_layers, keep=False,
         moe_layer_check(torch, dev, cfg32, params, MOE_F32_REL)
     del model, params, plain32
     _release(torch)
-    return launches, windowed, served
+    return launches, glue_n, windowed, served
 
 
 # -- phase 4, gemma2-9b: the long prompt, the ring defect, the int8 cache ----
@@ -1283,11 +1614,19 @@ def _launches():
     return {name: getattr(kops, name).launches for name in KERNELS}
 
 
+def _glue_launches():
+    from repro_torch.kernels import glue
+
+    return {name: getattr(glue, name).launches for name in GLUE}
+
+
 def _zero_launches():
-    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import glue, ops as kops
 
     for name in KERNELS:
         getattr(kops, name).launches = 0
+    for name in GLUE:
+        getattr(glue, name).launches = 0
     kops.flash_attention.windowed_launches = 0
     kops.flash_attention.launches_by_heads = {}
 
@@ -3882,6 +4221,8 @@ def _negate_lam(tree):
 #: greedy tokens of each bf16 path served at full width (phases 4 and 9),
 #: held for phase 12's meshed runs
 PATH_TOKENS = {}
+#: prefill dispatches of each bf16 path's run (phases 4 and 9)
+PATH_DISPATCHES = {}
 #: phase 12: the dry-run combinations, each traced in its own process on
 #: the fake group while the card serves: (arch, shape, multi-pod)
 MESH_DRYRUNS = (("yi-9b", "train_4k", False),
@@ -3954,35 +4295,56 @@ def _finish_dryruns(procs, smi):
 
 
 def _mesh_serve(torch, dev, cfg, ax, mode, smi):
-    """``cfg`` served through the cascade twice from the same seeded
-    weights: without a mesh, then with ``ax`` and the params placed by
+    """``cfg`` served through the cascade from the same seeded weights:
+    without a mesh, then with ``ax`` and the params placed by
     ``param_pspecs(mode=mode)`` (the same tensors: views, no copy).  The
     tokens, the launches and the peak above the held weights are checked
-    equal (the peak within 1%).
-    Returns (mesh run's tokens, its launches, params)."""
+    equal (the peak within 1%).  Under the mesh the layers keep the eager
+    glue (``transformer.fused_glue`` is false there), whose norms sum in
+    another order than ``add_rmsnorm``: the run without a mesh that the
+    mesh run is held to keeps it too, and a third run, without a mesh and
+    with the glue fused as served, gives the path's own tokens and glue
+    launches.
+    Returns (the served path's tokens, the mesh run's launches, params)."""
     from repro_torch.launch import sharding as sh
 
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, transformer
 
     params = build_model(cfg, device=dev).init(
         torch.Generator(device=dev).manual_seed(SEED))
     held = torch.cuda.memory_allocated(dev)
+    _, _, _, served, _, _, disp, _ = serve(torch, dev, cfg, params=params)
+    glue_n = _glue_launches()
+    want_glue = expected_glue(cfg, sum(disp), STEPS)
+    check(glue_n == want_glue, f"{cfg.name} without a mesh: fused glue "
+          f"launches {glue_n} == {want_glue}")
+    fused_glue = transformer.fused_glue
+    transformer.fused_glue = lambda cfg, ax: False
     torch.cuda.reset_peak_memory_stats(dev)
-    _, _, _, want, lats, _, disp, launches = serve(torch, dev, cfg,
-                                                   params=params)
+    try:
+        _, _, _, want, lats, _, disp, launches = serve(torch, dev, cfg,
+                                                       params=params)
+    finally:
+        transformer.fused_glue = fused_glue
     peak0 = torch.cuda.max_memory_allocated(dev) - held
     want_launches = expected_launches(cfg, sum(disp), STEPS)
-    check(launches == want_launches, f"{cfg.name} without a mesh: "
-          f"launches {launches} == {want_launches}")
+    check(launches == want_launches
+          and _glue_launches() == dict.fromkeys(GLUE, 0),
+          f"{cfg.name} without a mesh, the glue eager: launches {launches}"
+          f" == {want_launches}, no glue launch ({_glue_launches()})")
     dparams = sh.distribute(params, ax.mesh, sh.param_pspecs(
         params, cfg, ax, mode=mode))
     torch.cuda.reset_peak_memory_stats(dev)
     _, _, _, got, lats1, _, disp1, launches1 = serve(
         torch, dev, cfg, params=dparams, ax=ax)
+    glue1 = _glue_launches()
     peak1 = torch.cuda.max_memory_allocated(dev) - held
     want1 = expected_launches(cfg, sum(disp1), STEPS)
+    check(glue1 == dict.fromkeys(GLUE, 0), f"{cfg.name} under a (1, 1) "
+          f"mesh: no fused glue launch ({glue1}): the layers keep the "
+          f"DTensor composition")
     check(got == want, f"{cfg.name} under a (1, 1) mesh: tokens {got} == "
-          f"the run without a mesh {want}")
+          f"the run without a mesh, the glue eager, {want}")
     check(launches1 == want1, f"{cfg.name} under a (1, 1) mesh: launches "
           f"{launches1} == {want1}")
     check(peak1 <= 1.01 * peak0, f"{cfg.name} under a (1, 1) mesh: peak "
@@ -3992,8 +4354,8 @@ def _mesh_serve(torch, dev, cfg, ax, mode, smi):
           f"the {held} bytes held (the weights among them) {peak1} bytes "
           f"under the mesh, {peak0} without; steady "
           f"{min(lats1) * 1e3} ms under the mesh, {min(lats) * 1e3} ms "
-          f"without; {smi}", flush=True)
-    return got, launches1, params
+          f"without; the served path's tokens {served}; {smi}", flush=True)
+    return served, launches1, params
 
 
 def _ep_rows(torch, dev, cfg, params, ax, smi):
@@ -4074,9 +4436,12 @@ def phase_mesh(torch, dev, smi):
     placed by ``param_pspecs(mode="serve")`` and its cache by
     ``cache_pspecs``, the flash and decode kernels launched inside the
     attention's ``local_map`` regions: tokens equal to the run without a
-    mesh and to phase 4's, launches as ``expected_launches``, the peak
-    within 1%.  arctic-480b at full width and 2 layers with
-    ``param_pspecs(mode="train")``: tokens equal to phase 9's.
+    mesh and with the glue eager, as the mesh keeps it, launches as
+    ``expected_launches`` and no glue launch, the peak within 1%; the
+    served path (no mesh, the glue fused) gives phase 4's tokens.
+    arctic-480b at full width and 2 layers with
+    ``param_pspecs(mode="train")``: the same, its served path phase 9's
+    tokens.
     ``moe_apply_ep`` at mp 1 on arctic's MoE layer (``_ep_rows``).  The
     five ``MESH_DRYRUNS`` traced in subprocesses meanwhile.  Returns the
     yi-9b mesh run's launches of the two attention kernels."""
@@ -4097,14 +4462,14 @@ def phase_mesh(torch, dev, smi):
         ax = M.make_axis_info(mesh)
         cfg = dataclasses.replace(get_config("yi-9b"), use_kernels=True)
         got, launches, _ = _mesh_serve(torch, dev, cfg, ax, "serve", smi)
-        check(got == PATH_TOKENS["yi-9b"], f"yi-9b under the mesh: tokens "
-              f"{got} == phase 4's {PATH_TOKENS['yi-9b']}")
+        check(got == PATH_TOKENS["yi-9b"], f"yi-9b's served path in phase "
+              f"12: tokens {got} == phase 4's {PATH_TOKENS['yi-9b']}")
         _release(torch)
         cfg = dataclasses.replace(get_config("arctic-480b"), use_kernels=True,
                                   num_layers=MESH_ARCTIC_LAYERS)
         got_a, _, params = _mesh_serve(torch, dev, cfg, ax, "train", smi)
-        check(got_a == PATH_TOKENS["arctic-480b"], f"arctic-480b under the "
-              f"mesh: tokens {got_a} == phase 9's "
+        check(got_a == PATH_TOKENS["arctic-480b"], f"arctic-480b's served "
+              f"path in phase 12: tokens {got_a} == phase 9's "
               f"{PATH_TOKENS['arctic-480b']}")
         ep = _ep_rows(torch, dev, cfg, params, ax, smi)
         del params
@@ -4175,6 +4540,7 @@ def main() -> int:
     print(f"  built {secs} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = _phase("kernels")
+    glue_line = phase_glue(torch, dev, smi)
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     kernels = phase_kernels(torch, dev, flush=scratch.zero_)
     del scratch
@@ -4185,10 +4551,17 @@ def main() -> int:
         _release(torch)          # nothing of the last path stays allocated
         # each kernel's launches come from the run of the path it is on:
         # yi-9b's for the base rows, gemma2-9b's for its own
-        launches, windowed, kept = phase_path(
+        launches, glue_n, windowed, kept = phase_path(
             torch, dev, arch, f32_layers, logits_layers, keep=arch == "yi-9b")
         if kept is not None:
             served[arch] = kept  # phase 5 serves yi-9b's weights
+        if arch == "yi-9b":      # the glue rows are at yi-9b's shapes
+            for row in glue_line["glue"]:
+                row["launches"] = glue_n[row["name"].split("[")[0]]
+                row["launches_per"] = (
+                    f"{PATH_DISPATCHES[arch]} dispatches of full-depth "
+                    f"yi-9b's cascade, a prefill and {STEPS} decode steps "
+                    "each (phase 4)")
         suffix = f"[{arch}]" if f"flash_attention[{arch}]" in kernels else ""
         for name, n in launches.items():
             if n:
@@ -4226,8 +4599,8 @@ def main() -> int:
     t0 = _phase("families II", t0)
     for arch, layers, f32_layers in FAMILIES2:
         _release(torch)
-        launches, _, _ = phase_path(torch, dev, arch, f32_layers, None,
-                                    layers=layers)
+        launches, _, _, _ = phase_path(torch, dev, arch, f32_layers, None,
+                                       layers=layers)
         if f"flash_attention[{arch}]" in kernels:
             for name, n in launches.items():
                 if n:
@@ -4257,6 +4630,7 @@ def main() -> int:
                          if k in kernels[n]} for n in KERNEL_ROWS]}
     print(smi, flush=True)
     print(json.dumps(line), flush=True)
+    print(json.dumps(glue_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -34,7 +34,8 @@ from torch._subclasses.fake_tensor import FakeTensor
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNEL_SOURCES = ("decode_attention", "flash_attention", "wkv6",
-                  "rglru_scan")
+                  "rglru_scan", "add_rmsnorm", "rope", "rope_cache_write",
+                  "gated_act")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -44,6 +45,7 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _c_ptr = ctypes.c_void_p
 _c_int = ctypes.c_int
 _c_float = ctypes.c_float
+_c_i64 = ctypes.c_longlong
 _c_i64p = ctypes.POINTER(ctypes.c_longlong)
 
 #: the C entry point of each kernel library: (function, argtypes)
@@ -63,6 +65,18 @@ SIGNATURES = {
     "rglru_scan": (
         "rglru_scan_launch",
         [_c_ptr] * 4 + [_c_int] * 7 + [_c_ptr]),
+    "add_rmsnorm": (
+        "add_rmsnorm_launch",
+        [_c_ptr] * 5 + [_c_int, _c_int, _c_float, _c_int, _c_int, _c_ptr]),
+    "rope": (
+        "rope_launch",
+        [_c_ptr] * 6 + [_c_int] * 5 + [_c_i64p, _c_int, _c_ptr]),
+    "rope_cache_write": (
+        "rope_cache_write_launch",
+        [_c_ptr] * 9 + [_c_int] * 5 + [_c_i64p, _c_int, _c_ptr]),
+    "gated_act": (
+        "gated_act_launch",
+        [_c_ptr] * 3 + [_c_i64, _c_int, _c_int, _c_int, _c_ptr]),
 }
 
 
@@ -195,7 +209,14 @@ def card_of(name: str, tensors) -> Optional[torch.device]:
     A DTensor raises :class:`KernelError`: the kernels run inside the
     models' ``local_map`` regions on each rank's local shards, and a
     wrapper neither gathers a DTensor into a whole tensor nor falls back
-    to its plain version."""
+    to its plain version.
+
+    Plain tensors (of type ``torch.Tensor`` itself, which neither a
+    DTensor nor a fake tensor is) skip both tests: the serving path makes
+    a few hundred such calls a decode step, and their host time is the
+    step's."""
+    if all(type(t) is torch.Tensor for t in tensors):
+        return _device_of(name, tensors)
     from torch.utils._python_dispatch import is_traceable_wrapper_subclass
     if any(is_traceable_wrapper_subclass(t) for t in tensors):
         raise KernelError(
@@ -206,6 +227,11 @@ def card_of(name: str, tensors) -> Optional[torch.device]:
         if calls is not None:
             calls.append((name, tuple(tuple(t.shape) for t in tensors)))
         return None
+    return _device_of(name, tensors)
+
+
+def _device_of(name: str, tensors) -> Optional[torch.device]:
+    """:func:`card_of` for tensors that hold data."""
     devices = {t.device for t in tensors}
     if devices == {torch.device("cpu")}:
         return None
@@ -236,12 +262,18 @@ def launch(wrapper, device: torch.device, *args) -> None:
     """Launch the kernel named as ``wrapper`` on ``device``'s current
     stream with the C arguments ``args`` (the stream goes last), raise
     :class:`KernelError` when CUDA refuses it, and count the launch in
-    ``wrapper.launches``."""
+    ``wrapper.launches``.  ``device`` is made the current device for the
+    launch only where it is not already."""
     name = wrapper.__name__
     lib = library(name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = getattr(lib, SIGNATURES[name][0])(*args, stream)
+    fn = getattr(lib, SIGNATURES[name][0])
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index == torch.cuda.current_device():
+        code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if code != 0:
         msg = getattr(lib, f"{name}_error_string")(code)
         raise KernelError(f"{name} launch failed: CUDA error {code} "

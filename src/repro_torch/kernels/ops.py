@@ -45,11 +45,14 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.build import KernelError
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.glue import (add_rmsnorm, gated_act, rope,
+                                      rope_cache_write)
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.wkv6 import wkv6
 
 __all__ = ["KernelError", "flash_attention", "decode_attention", "wkv6",
-           "rglru_scan",
+           "rglru_scan", "add_rmsnorm", "rope", "rope_cache_write",
+           "gated_act",
            "KernelCall", "KernelSpec", "KERNEL_REGISTRY", "kernel_step",
            "register_pattern", "match_kernel", "kernel_call_of", "placed_fn",
            "placed_twin"]

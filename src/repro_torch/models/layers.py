@@ -121,14 +121,16 @@ def rope_frequencies(head_dim: int, theta: float, device=None):
     return 1.0 / (theta ** exponent)  # [hd/2]
 
 
-def apply_rope(x, positions, theta: float):
+def apply_rope(x, positions, theta: float, freqs=None):
     """x: [..., S, n_heads, head_dim]; positions: [S] or [B, S] int32.
     Half-split rotation: the first half of head_dim pairs with the
-    second."""
-    if theta <= 0.0:
-        return x
-    hd = x.shape[-1]
-    freqs = rope_frequencies(hd, theta, device=x.device)
+    second.  ``freqs``: ``rope_frequencies(head_dim, theta)`` where the
+    caller keeps it built (``theta`` is then not read); without it no
+    rotation at ``theta <= 0``."""
+    if freqs is None:
+        if theta <= 0.0:
+            return x
+        freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
     angles = positions.float()[..., None] * freqs        # [(B,)S,hd/2]
     angles = angles.unsqueeze(-2)                        # [(B,)S,1,hd/2]
     cos, sin = torch.cos(angles), torch.sin(angles)

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import sys
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
@@ -128,8 +129,14 @@ def unplace(t):
 
 
 def is_dtensor(x) -> bool:
-    from torch.distributed.tensor import DTensor
-    return isinstance(x, DTensor)
+    """Whether ``x`` is a DTensor.  None exists before
+    ``torch.distributed.tensor`` is imported, so the test does not import
+    it: a process without a mesh would pay for that import (seconds of
+    compiling its sources where no bytecode is cached) on its first
+    dispatch."""
+    cls = getattr(sys.modules.get("torch.distributed.tensor"), "DTensor",
+                  None)
+    return cls is not None and isinstance(x, cls)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -31,7 +31,13 @@ same, and the port keeps it for parity (ROADMAP.md §3).
 
 ``cfg.use_kernels`` selects the CUDA kernels at the two self-attention
 sites (the prefill's flash attention and the decode step's decode
-attention); on CPU tensors the kernel wrappers run their plain versions.
+attention) and, where :func:`fused_glue` holds, for the layer's
+elementwise glue (:mod:`repro_torch.kernels.glue`): each residual add
+with the RMSNorm after it (``add_rmsnorm``), the prefill's RoPE
+(``rope``), the decode step's RoPE and ring write
+(``rope_cache_write``) and the gated MLP's activation (``gated_act``).
+On CPU tensors the kernel wrappers run their plain versions, the eager
+composition op for op.
 The kernels have no backward, as the reference's have none: training
 differentiates the plain composition (``use_kernels=False``), and a
 kernel wrapper refuses CUDA inputs that require grad.
@@ -54,10 +60,12 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.interop import torch_dtype
+from repro_torch.kernels import glue
 from repro_torch.models import layers, moe as moe_lib
 from repro_torch.models.partition import (AxisInfo, P, dp_axes, gather_fsdp,
                                           heads_spec, local_region, mp_axis,
@@ -201,6 +209,66 @@ def _attn_scale(cfg: ModelConfig) -> float:
     return 1.0 / math.sqrt(cfg.head_dim)
 
 
+def fused_glue(cfg: ModelConfig, ax: Optional[AxisInfo]) -> bool:
+    """Whether the layers' elementwise glue runs as the fused kernels of
+    :mod:`repro_torch.kernels.glue`: with ``use_kernels``, an rmsnorm
+    model, a ring in the model's dtype and no mesh.  Elsewhere the
+    layers keep the eager composition: a layernorm, ``kv_quant``'s
+    quantize-then-write into an int8 ring, and the DTensor composition
+    under a mesh (the kernels take plain tensors).
+
+    With the glue fused, a residual add is held back (``delta``) and done
+    by the ``add_rmsnorm`` launch of the norm that reads its sum; the
+    adds and norms still come in the eager order."""
+    return (cfg.use_kernels and ax is None and cfg.norm == "rmsnorm"
+            and not cfg.kv_quant)
+
+
+#: (head_dim, theta, device) -> the RoPE frequency table, built once
+_ROPE_TABLES: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
+
+
+def rope_table(head_dim: int, theta: float, device) -> Optional[torch.Tensor]:
+    """``layers.rope_frequencies(head_dim, theta)`` on ``device``, the
+    table the fused RoPE kernels read, built once and kept; None where
+    theta <= 0 (no rotation).  A table built on fake tensors (a shape
+    walk) is not kept."""
+    if theta <= 0.0:
+        return None
+    key = (head_dim, theta, device)
+    table = _ROPE_TABLES.get(key)
+    if table is None:
+        table = layers.rope_frequencies(head_dim, theta, device=device)
+        if not isinstance(table, FakeTensor) and table.device.type != "meta":
+            _ROPE_TABLES[key] = table
+    return table
+
+
+def _norm_of(x, delta, p, cfg: ModelConfig, fused: bool):
+    """(the residual, its norm by the norm params ``p``): with the fused
+    glue one ``add_rmsnorm`` launch adds the held-back ``delta`` (None:
+    nothing held) and norms the sum, else ``layers.apply_norm`` (nothing
+    is held back then)."""
+    if fused:
+        return glue.add_rmsnorm(x, delta, p["scale"])
+    return x, layers.apply_norm(x, p, cfg.norm)
+
+
+def _residual_add(x, y, fused: bool):
+    """``x + y`` as (residual, held-back delta): with the fused glue the
+    add waits for the next norm's ``add_rmsnorm``, else it is done now.
+    Nothing is held back at an add site: a norm or :func:`_flush` took
+    it."""
+    if fused:
+        return x, y
+    return x + y, None
+
+
+def _flush(x, delta):
+    """The residual with any held-back delta added: for work that reads
+    the residual itself (cross attention)."""
+    return x if delta is None else x + delta
+
 
 def project_qkv(x, ap, cfg: ModelConfig, mp: int = 1):
     B, S, _ = x.shape
@@ -213,11 +281,16 @@ def project_qkv(x, ap, cfg: ModelConfig, mp: int = 1):
 
 
 def _attn_core_full(q, k, v, positions, *, cfg: ModelConfig,
-                    spec: LayerSpec, chunk: int):
+                    spec: LayerSpec, chunk: int, fused: bool = False):
     """RoPE and the attention on one rank's heads (plain tensors: the
-    kernels' ``ctypes`` launch takes nothing else).  Returns (out, k)."""
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    kernels' ``ctypes`` launch takes nothing else); with the fused glue
+    one ``rope`` launch rotates q and k.  Returns (out, k)."""
+    if fused:
+        q, k = glue.rope(q, k, positions, rope_table(
+            q.shape[-1], cfg.rope_theta, q.device))
+    else:
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
     if cfg.use_kernels:
         from repro_torch.kernels import ops as kops
         # [B,S,H,hd] -> [B,H,S,hd] views: the kernel reads strides
@@ -246,7 +319,7 @@ def _self_attention_full(x, ap, cfg: ModelConfig, ax, spec: LayerSpec,
     k = shard(ax, k, *hs)
     v = shard(ax, v, *hs)
     core = functools.partial(_attn_core_full, cfg=cfg, spec=spec,
-                             chunk=chunk)
+                             chunk=chunk, fused=fused_glue(cfg, ax))
     out, k = local_region(ax, core, (hs, hs, hs, None), (hs, hs))(
         q, k, v, positions)
     out = out.reshape(x.shape[0], x.shape[1], -1) @ ap["wo"]
@@ -254,31 +327,45 @@ def _self_attention_full(x, ap, cfg: ModelConfig, ax, spec: LayerSpec,
 
 
 def _decode_core(q, k, v, pos, kc, vc, pc, *scales, cfg: ModelConfig,
-                 spec: LayerSpec):
+                 spec: LayerSpec, fused: bool = False):
     """RoPE, the ring write and the attention of one decode step, on one
     rank's batch rows and heads.  kc/vc/pc (and the ``kv_quant`` scales)
     are written IN PLACE: DTensor's own rule for the indexed write would
-    gather the batch first."""
+    gather the batch first.  With the fused glue one ``rope_cache_write``
+    launch does the RoPE and the ring write."""
+    if fused:
+        pos = pos.to(torch.int32)
+        q = glue.rope_cache_write(q, k, v, pos, kc, vc, pc, rope_table(
+            q.shape[-1], cfg.rope_theta, q.device))
+        return _decode_attend(q, kc, vc, pos, pc, cfg=cfg, spec=spec)
+    if not cfg.kv_quant:
+        freqs = (layers.rope_frequencies(q.shape[-1], cfg.rope_theta,
+                                         device=q.device)
+                 if cfg.rope_theta > 0.0 else None)
+        q = glue.rope_cache_write_plain(q, k, v, pos, kc, vc, pc, freqs)
+        return _decode_attend(q, kc, vc, pos, pc, cfg=cfg, spec=spec)
     q = layers.apply_rope(q, pos[:, None], cfg.rope_theta)
     k = layers.apply_rope(k, pos[:, None], cfg.rope_theta)
     W = kc.shape[1]
     slot = (pos % W).long()                                       # [B]
     b_idx = torch.arange(q.shape[0], device=q.device)
-    if cfg.kv_quant:
-        ks, vs = scales
-        kq, ksc = layers.kv_quantize(k[:, 0])
-        vq, vsc = layers.kv_quantize(v[:, 0])
-        kc[b_idx, slot] = kq
-        vc[b_idx, slot] = vq
-        ks[b_idx, slot] = ksc
-        vs[b_idx, slot] = vsc
-        k_read = layers.kv_dequantize(kc, ks, k.dtype)
-        v_read = layers.kv_dequantize(vc, vs, v.dtype)
-    else:
-        kc[b_idx, slot] = k[:, 0]
-        vc[b_idx, slot] = v[:, 0]
-        k_read, v_read = kc, vc
+    ks, vs = scales
+    kq, ksc = layers.kv_quantize(k[:, 0])
+    vq, vsc = layers.kv_quantize(v[:, 0])
+    kc[b_idx, slot] = kq
+    vc[b_idx, slot] = vq
+    ks[b_idx, slot] = ksc
+    vs[b_idx, slot] = vsc
     pc[b_idx, slot] = pos.to(pc.dtype)
+    return _decode_attend(q, layers.kv_dequantize(kc, ks, k.dtype),
+                          layers.kv_dequantize(vc, vs, v.dtype), pos, pc,
+                          cfg=cfg, spec=spec)
+
+
+def _decode_attend(q, k_read, v_read, pos, pc, *, cfg: ModelConfig,
+                   spec: LayerSpec):
+    """The decode step's attention over the written ring: the kernel with
+    ``use_kernels``, else the plain version.  Returns (out,)."""
     if cfg.use_kernels:
         from repro_torch.kernels import ops as kops
         # [B,W,K,hd] -> [B,K,W,hd] is a view; the kernel reads strides
@@ -313,7 +400,8 @@ def _self_attention_decode(x, ap, cfg: ModelConfig, ax, spec: LayerSpec,
     if cfg.kv_quant:
         args += list(scales)
         specs += [P(dp, None, mp_axis(ax))] * 2
-    core = functools.partial(_decode_core, cfg=cfg, spec=spec)
+    core = functools.partial(_decode_core, cfg=cfg, spec=spec,
+                             fused=fused_glue(cfg, ax))
     (out,) = local_region(ax, core, specs, (hs,))(*args)
     return out.reshape(x.shape[0], 1, -1) @ ap["wo"]
 
@@ -354,6 +442,15 @@ def media_kv_from_embeddings(media, cp, cfg: ModelConfig, mp: int = 1):
     return mk, mv
 
 
+def _mlp(x, p, cfg: ModelConfig, ax):
+    """``layers.mlp_apply``; a gated MLP with the fused glue takes its
+    activation and product in one ``gated_act`` launch."""
+    if cfg.gated_mlp and fused_glue(cfg, ax):
+        return glue.gated_act(x @ p["w_gate"], x @ p["w_up"],
+                              cfg.act) @ p["w_down"]
+    return layers.mlp_apply(x, p, gated=cfg.gated_mlp, act=cfg.act)
+
+
 def _layer_ffn(x, lp, spec: LayerSpec, cfg: ModelConfig, ax=None, *,
                seq_sharded: bool = False, moe_dispatch: str = "all_to_all"):
     """The FFN part: the MLP, or the MoE layer plus its ``aux_mlp``.
@@ -364,12 +461,9 @@ def _layer_ffn(x, lp, spec: LayerSpec, cfg: ModelConfig, ax=None, *,
                                    seq_sharded=seq_sharded,
                                    dispatch=moe_dispatch)
         if spec.aux_mlp:
-            y = y + rows(ax, layers.mlp_apply(rows(ax, x), lp["aux_mlp"],
-                                              gated=cfg.gated_mlp,
-                                              act=cfg.act))
+            y = y + rows(ax, _mlp(rows(ax, x), lp["aux_mlp"], cfg, ax))
         return y, aux
-    return (layers.mlp_apply(rows(ax, x), lp["mlp"], gated=cfg.gated_mlp,
-                             act=cfg.act), None)
+    return _mlp(rows(ax, x), lp["mlp"], cfg, ax), None
 
 
 # ---------------------------------------------------------------------------
@@ -409,6 +503,7 @@ def forward(params, tokens, cfg: ModelConfig, *, ax: Optional[AxisInfo] = None,
     if media is not None:
         media = shard(ax, media, dp, None, None)
     seq_sharded = ax is not None and cfg.seq_shard
+    fused = fused_glue(cfg, ax)
 
     def _out(t):
         """A layer's output (partial sums over model) summed into the
@@ -420,7 +515,9 @@ def forward(params, tokens, cfg: ModelConfig, *, ax: Optional[AxisInfo] = None,
             return shard(ax, t, dp, seq_ax, None)
         return rows(ax, t)
 
-    def block_fn(x, blk):
+    def block_fn(x, delta, blk):
+        """One block from the residual ``x`` (and, with the fused glue,
+        the last layer's held-back ``delta``, else None)."""
         auxes: List[torch.Tensor] = []
         cache_out: Dict[str, torch.Tensor] = {}
         blk = gather_fsdp(ax, blk)
@@ -433,47 +530,51 @@ def forward(params, tokens, cfg: ModelConfig, *, ax: Optional[AxisInfo] = None,
             # ops run in program order: the gather (``rows``) always moves
             # the norm's output in the model's dtype, so the port has
             # nothing to pin, and the barrier changes no value.
-            h = layers.apply_norm(x, lp["ln1"], cfg.norm)
+            x, h = _norm_of(x, delta, lp["ln1"], cfg, fused)
             attn_out, k, v = _self_attention_full(h, lp["attn"], cfg, ax,
                                                   spec, positions,
                                                   chunk=chunk)
             if cfg.post_norms:
-                attn_out = layers.apply_norm(attn_out, lp["post_ln1"],
-                                             cfg.norm)
+                _, attn_out = _norm_of(attn_out, None, lp["post_ln1"], cfg,
+                                       fused)
             attn_out = _out(attn_out)
-            x = x + attn_out
+            x, delta = _residual_add(x, attn_out, fused)
             if spec.has_cross and media is not None:
+                x, delta = _flush(x, delta), None
                 mkv = media_kv_from_embeddings(media, lp["cross"], cfg,
                                                mp_size(ax))
-                x = x + _out(_cross_attention(x, lp["cross"], cfg, ax, mkv))
+                x, delta = _residual_add(x, _out(_cross_attention(
+                    x, lp["cross"], cfg, ax, mkv)), fused)
                 if build_cache:
                     cache_out[f"ck{i}"], cache_out[f"cv{i}"] = mkv
-            h = layers.apply_norm(x, lp["ln2"], cfg.norm)
+            x, h = _norm_of(x, delta, lp["ln2"], cfg, fused)
             ffn_out, aux = _layer_ffn(h, lp, spec, cfg, ax,
                                       seq_sharded=seq_sharded,
                                       moe_dispatch=moe_dispatch)
             if cfg.post_norms:
-                ffn_out = layers.apply_norm(ffn_out, lp["post_ln2"], cfg.norm)
+                _, ffn_out = _norm_of(ffn_out, None, lp["post_ln2"], cfg,
+                                      fused)
             ffn_out = _out(ffn_out)
-            x = x + ffn_out
+            x, delta = _residual_add(x, ffn_out, fused)
             if aux is not None:
                 auxes.append(aux)
             if build_cache:
                 cache_out.update(_ring_slots(i, k, v, positions, spec, cfg,
                                              cache_len, ax))
-        return x, cache_out, auxes
+        return x, delta, cache_out, auxes
 
     body = (layers.remat_block(block_fn, cfg.remat_policy) if remat
             else block_fn)
     caches: Dict[str, List[torch.Tensor]] = {}
     auxes: List[torch.Tensor] = []
+    delta = None
     for j in range(n_blocks):
-        x, cache_out, blk_aux = body(x, layers.layer_slice(params["blocks"],
-                                                           j))
+        x, delta, cache_out, blk_aux = body(
+            x, delta, layers.layer_slice(params["blocks"], j))
         auxes += blk_aux
         for name, t in cache_out.items():
             caches.setdefault(name, []).append(t)
-    x = layers.apply_norm(x, params["final_norm"], cfg.norm)
+    _, x = _norm_of(x, delta, params["final_norm"], cfg, fused)
     logits = layers.unembed(rows(ax, x), table,
                             softcap=cfg.final_logit_softcap)
     logits = shard(ax, logits, dp, seq_ax, None)
@@ -612,34 +713,39 @@ def decode_step(params, tokens, pos, cache, cfg: ModelConfig, *,
     new_cache = {k: v if k.startswith(_READ_ONLY) else v.clone()
                  for k, v in cache.items()}
     dp = dp_axes(ax)
+    fused = fused_glue(cfg, ax)
     table = vocab_table(params, ax)
     x = layers.embed_lookup(table, tokens, scale_by_dim=cfg.embedding_scale)
     x = shard(ax, x, dp, None, None)
+    delta = None        # the held-back residual add of the fused glue
     for j in range(n_blocks):
         blk = gather_fsdp(ax, layers.layer_slice(params["blocks"], j))
         x = shard(ax, x, dp, None, None)
         for i, spec in enumerate(specs):
             lp = blk[str(i)]
-            h = layers.apply_norm(x, lp["ln1"], cfg.norm)
+            x, h = _norm_of(x, delta, lp["ln1"], cfg, fused)
             scales = ((new_cache[f"ks{i}"][j], new_cache[f"vs{i}"][j])
                       if cfg.kv_quant else None)
             attn_out = _self_attention_decode(
                 h, lp["attn"], cfg, ax, spec, pos, new_cache[f"k{i}"][j],
                 new_cache[f"v{i}"][j], new_cache[f"pos{i}"][j], scales)
             if cfg.post_norms:
-                attn_out = layers.apply_norm(attn_out, lp["post_ln1"],
-                                             cfg.norm)
-            x = x + attn_out
+                _, attn_out = _norm_of(attn_out, None, lp["post_ln1"], cfg,
+                                       fused)
+            x, delta = _residual_add(x, attn_out, fused)
             if spec.has_cross:
+                x, delta = _flush(x, delta), None
                 mkv = (new_cache[f"ck{i}"][j], new_cache[f"cv{i}"][j])
-                x = x + _cross_attention(x, lp["cross"], cfg, ax, mkv)
-            h = layers.apply_norm(x, lp["ln2"], cfg.norm)
+                x, delta = _residual_add(
+                    x, _cross_attention(x, lp["cross"], cfg, ax, mkv), fused)
+            x, h = _norm_of(x, delta, lp["ln2"], cfg, fused)
             ffn_out, _ = _layer_ffn(h, lp, spec, cfg, ax,
                                     moe_dispatch=moe_dispatch)
             if cfg.post_norms:
-                ffn_out = layers.apply_norm(ffn_out, lp["post_ln2"], cfg.norm)
-            x = x + ffn_out
-    x = layers.apply_norm(x, params["final_norm"], cfg.norm)
+                _, ffn_out = _norm_of(ffn_out, None, lp["post_ln2"], cfg,
+                                      fused)
+            x, delta = _residual_add(x, ffn_out, fused)
+    _, x = _norm_of(x, delta, params["final_norm"], cfg, fused)
     logits = layers.unembed(rows(ax, x), table,
                             softcap=cfg.final_logit_softcap)
     return logits, new_cache

@@ -18,7 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import glue, ops as kops  # noqa: E402
 from repro_torch.kernels.build import KernelError  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain)
@@ -27,7 +27,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan_plain  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6_plain  # noqa: E402
 
-from repro_torch.models import rglru  # noqa: E402
+from repro_torch.models import rglru, transformer  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -1249,12 +1249,31 @@ def _guarded_call(name, dev):
         w = _decay((1, 16, 2, 64), f32, dev, 3)
         u = _rand((2, 64), f32, dev, 4)
         return kops.wkv6, (r, r.clone(), r.clone(), w, u), 1
-    a = _decay((2, 16, 128), f32, dev, 0)
-    return kops.rglru_scan, (a, _rand((2, 16, 128), f32, dev, 1)), 1
+    if name == "rglru_scan":
+        a = _decay((2, 16, 128), f32, dev, 0)
+        return kops.rglru_scan, (a, _rand((2, 16, 128), f32, dev, 1)), 1
+    if name == "add_rmsnorm":
+        x = _rand((2, 3, 64), f32, dev, 0)
+        return glue.add_rmsnorm, (x, x.clone(), _rand((64,), f32, dev, 1)), 1
+    if name == "gated_act":
+        g = _rand((2, 3, 96), f32, dev, 0)
+        return glue.gated_act, (g, g.clone(), "silu"), 0
+    q, k = _rand((1, 1, 4, 32), f32, dev, 0), _rand((1, 1, 2, 32), f32, dev, 1)
+    freqs = transformer.rope_table(32, 10000.0, dev)
+    pos = torch.tensor([5], dtype=torch.int32, device=dev)
+    if name == "rope":
+        return glue.rope, (q, k, pos, freqs), 0
+    ring = _rand((1, 8, 2, 32), f32, dev, 2)
+    pc = torch.full((1, 8), -1, dtype=torch.int32, device=dev)
+    return glue.rope_cache_write, (q, k, k.clone(), pos, ring, ring.clone(),
+                                   pc, freqs), 0
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
-                                  "wkv6", "rglru_scan"])
+GUARDED = ["flash_attention", "decode_attention", "wkv6", "rglru_scan",
+           "add_rmsnorm", "gated_act", "rope", "rope_cache_write"]
+
+
+@pytest.mark.parametrize("name", GUARDED)
 def test_kernel_refuses_inputs_that_require_grad(dev, name):
     """A launch would return a tensor cut off from the graph: the wrapper
     raises instead, and launches nothing."""
@@ -1266,14 +1285,14 @@ def test_kernel_refuses_inputs_that_require_grad(dev, name):
     assert fn.launches == n0
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
-                                  "wkv6", "rglru_scan"])
+@pytest.mark.parametrize("name", GUARDED)
 def test_kernel_launches_under_no_grad_on_grad_inputs(dev, name):
     fn, args, i = _guarded_call(name, dev)
     args[i].requires_grad_(True)
     n0 = fn.launches
     with torch.no_grad():
         out = fn(*args)
+    out = out[-1] if isinstance(out, tuple) else out
     torch.cuda.synchronize()
     assert fn.launches == n0 + 1
     assert torch.isfinite(out).all() and out.grad_fn is None
@@ -1317,3 +1336,151 @@ def test_train_step_on_card_matches_cpu_and_refuses_kernels(dev):
     assert kops.flash_attention.launches == n0 + cfg.num_layers
     assert abs(float(met["loss"]) - float(out["cpu"][0])) <= \
         1e-4 * abs(float(out["cpu"][0]))
+
+
+# -- the decoder layer's fused glue (kernels/glue.py) -------------------------
+
+def _bf16_steps(got, want):
+    """The largest distance between two bf16 tensors in last-bit steps."""
+    def key(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((key(got) - key(want)).abs().max())
+
+
+def _glue_close(got, want, dtype, bf16_steps=None, atol=1e-2):
+    """f32: within 1e-5; bf16: within ``bf16_steps`` last-bit steps, or
+    ``atol`` where that is None."""
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    elif bf16_steps is not None:
+        assert _bf16_steps(got, want) <= bf16_steps
+    else:
+        assert float((got.float() - want.float()).abs().max()) <= atol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [4096, 3584, 101])   # 101: no 16-byte vectors
+@pytest.mark.parametrize("with_delta", [True, False])
+def test_add_rmsnorm_kernel_matches_plain(dev, dtype, D, with_delta):
+    x = _rand((3, 5, D), dtype, dev, 0, 1.0)
+    delta = _rand((3, 5, D), dtype, dev, 1, 1.0) if with_delta else None
+    scale = _rand((D,), dtype, dev, 2, 0.1)
+    n0 = glue.add_rmsnorm.launches
+    got_x, got_h = glue.add_rmsnorm(x, delta, scale)
+    want_x, want_h = glue.add_rmsnorm_plain(x, delta, scale)
+    assert glue.add_rmsnorm.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got_x, want_x)       # the add rounds as the eager one
+    _glue_close(got_h, want_h, dtype, bf16_steps=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 3, 11008), (5, 7, 13)])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_gated_act_kernel_matches_plain(dev, dtype, shape, act):
+    gate = _rand(shape, dtype, dev, 0, 3.0)
+    up = _rand(shape, dtype, dev, 1, 1.0)
+    n0 = glue.gated_act.launches
+    got = glue.gated_act(gate, up, act)
+    assert glue.gated_act.launches == n0 + 1
+    _glue_close(got, glue.gated_act_plain(gate, up, act), dtype,
+                bf16_steps=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,hd,batched,strided", [
+    (2, 9, 8, 2, 64, False, False),
+    (2, 9, 8, 2, 64, True, True),       # [B, S] positions; q a [B,H,S,hd] view
+    (1, 5, 4, 2, 256, False, False),    # gemma2's head_dim
+])
+def test_rope_kernel_matches_plain(dev, dtype, B, S, H, K, hd, batched,
+                                   strided):
+    q = _rand((B, S, H, hd), dtype, dev, 0, 1.0)
+    if strided:
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    k = _rand((B, S, K, hd), dtype, dev, 1, 1.0)
+    positions = torch.arange(S, dtype=torch.int32, device=dev) + 700
+    if batched:
+        positions = torch.stack([positions * (b + 1) for b in range(B)])
+    freqs = transformer.rope_table(hd, 10000.0, dev)
+    n0 = glue.rope.launches
+    got = glue.rope(q, k, positions, freqs)
+    assert glue.rope.launches == n0 + 1
+    for a, b in zip(got, glue.rope_plain(q, k, positions, freqs)):
+        _glue_close(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("theta,pos", [(10000.0, [1040, 7, 300]),
+                                       (0.0, [3, 1030, 9])])
+def test_rope_cache_write_kernel_matches_plain(dev, dtype, theta, pos):
+    """A decode step into the strided ring slices a step's cache copy
+    holds (a block of a stacked, batch-moved leaf), wrapped in one row;
+    without theta nothing rotates and q comes back as it was."""
+    B, H, K, hd, W = 3, 8, 2, 128, 1024
+    q = _rand((B, 1, H, hd), dtype, dev, 0, 1.0)
+    k = _rand((B, 1, K, hd), dtype, dev, 1, 1.0)
+    v = _rand((B, 1, K, hd), dtype, dev, 2, 1.0)
+    pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    ring = [_rand((2, W, B, K, hd), dtype, dev, 3).movedim(2, 1)[1],
+            _rand((2, W, B, K, hd), dtype, dev, 4).movedim(2, 1)[1],
+            torch.full((2, W, B), -1, dtype=torch.int32,
+                       device=dev).movedim(2, 1)[1]]
+    mine = [t.clone() for t in ring]
+    theirs = [t.clone() for t in ring]
+    freqs = transformer.rope_table(hd, theta, dev)
+    n0 = glue.rope_cache_write.launches
+    got = glue.rope_cache_write(q, k, v, pos, *mine, freqs)
+    want = glue.rope_cache_write_plain(q, k, v, pos, *theirs, freqs)
+    assert glue.rope_cache_write.launches == n0 + 1
+    _glue_close(got, want, dtype)
+    _glue_close(mine[0], theirs[0], dtype)
+    assert torch.equal(mine[1], theirs[1]) and torch.equal(mine[2],
+                                                           theirs[2])
+    if theta <= 0.0:
+        assert got is q
+
+
+def test_decode_step_on_card_fused_glue_matches_eager_glue(dev, monkeypatch):
+    """Tiny bf16 yi-9b on the card: a prefill and two decode steps with
+    the glue fused give the eager glue's logits within the bf16 bar and
+    its ring positions exactly, with 2L + 1 ``add_rmsnorm``, L ``rope``
+    and L ``gated_act`` launches a prefill and L ``rope_cache_write`` a
+    decode step."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_tiny_config("yi-9b"), use_kernels=True)
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1)).to(dev)
+    L = cfg.num_layers
+
+    def run():
+        logits, cache = model.prefill(params, {"tokens": toks}, 32)
+        outs = [logits]
+        pos = torch.full((2,), 40, dtype=torch.int32, device=dev)
+        for _ in range(2):
+            tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            logits, cache = model.decode_step(params, tok, pos, cache)
+            outs.append(logits)
+            pos = pos + 1
+        return outs, cache
+
+    n0 = {f: f.launches for f in (glue.add_rmsnorm, glue.rope,
+                                  glue.rope_cache_write, glue.gated_act)}
+    fused, fcache = run()
+    got = {f.__name__: f.launches - n for f, n in n0.items()}
+    assert got == {"add_rmsnorm": 3 * (2 * L + 1), "rope": L,
+                   "rope_cache_write": 2 * L, "gated_act": 3 * L}
+    monkeypatch.setattr(transformer, "fused_glue", lambda cfg, ax: False)
+    eager, ecache = run()
+    for a, b in zip(fused, eager):
+        _close(a, b, torch.bfloat16)
+    for name in ecache:
+        if name.startswith("pos"):
+            assert torch.equal(fcache[name], ecache[name])
