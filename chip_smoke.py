@@ -17,8 +17,11 @@ ignored):
    bf16 step, the rotations within 1e-2), one row each with its device
    time, bytes bound, host time per call and the plain version's, and
    the launches of its kernel over phase 4's yi-9b run (a ``glue`` JSON
-   line); then full-width yi-9b's prefill and decode step at B 1 and 8
-   with the glue fused and eager: launch calls (profiler), host and
+   line), and again at deepseek-moe-16b's (D 2048; decode at B 1 and 8
+   over a 4096-slot ring, prefill at [1, 1024] and [8, 1024];
+   ``gated_act`` at the dense layer's 10944 and the shared experts' 2816;
+   launches from phase 9's run); then full-width yi-9b's prefill and
+   decode step at B 1 and 8 with the glue fused and eager: launch calls (profiler), host and
    device time, and the logits of the two held together.  Then each attention
    and recurrence kernel against its plain PyTorch version at its path's
    shapes, in bf16 and f32 inputs, plus its time, the plain version's
@@ -50,7 +53,11 @@ ignored):
    ``wkv_chunked`` at [4, 256, 32, 64] and ``associative_scan`` on RG-
    LRU's combine at [4, 256, 2560] (``plain_form:`` lines).  yi-9b's
    flash also at phase 11's eval shape [4, 32, 1024, 128], a row of its
-   own whose launches are the eval step's.
+   own whose launches are the eval step's.  deepseek-moe-16b's MHA (H=K=16,
+   group 1) at its benchmark cell's shapes: decode over a 4096-slot ring
+   filled with a 1024-token prompt and its steps, flash at [B, 16, 1024,
+   128], at B 1 and 8, rows of their own (``deepseek_attention_rows``;
+   launches from phase 9's run).
 4. Paths: gemma2-9b (42 layers), yi-9b (48), rwkv6-1.6b (24) and
    recurrentgemma-2b (26) at full width and depth in bf16 with
    ``use_kernels=True``, random
@@ -155,7 +162,15 @@ ignored):
    layers): the cascade over zero frames launching no kernel,
    ``ServingEngine.generate`` with seeded frames, the frames' effect on
    the logits, the cross K/V passed on uncopied (``phase_frames``), f32
-   tokens at full depth.
+   tokens at full depth.  deepseek-moe-16b at full width and depth (28
+   layers: a dense one, then 27 of 64 routed experts, top 6, and the
+   shared experts) through the same checks, f32 tokens at 2 layers.
+   Then its reference check (``phase_deepseek_reference``): 4 prompts of
+   1024 tokens, a prefill and 16 greedy decode steps through a 4096-slot
+   cache against the plain float32 reference at every served position,
+   each over a tolerance only where a route lies within the bf16 rounding
+   of the router's input, and the reference's float8 control over one at
+   some position (a ``deepseek_reference:`` JSON line).
 10. Entry points (see ``phase_entry``), after phase 7 on phase 4's
    yi-9b weights, everything at full width: ``serve_batched.run`` over
    ``launch.serve.build_flow`` (12 requests at once, ``max_batch=8``,
@@ -213,8 +228,8 @@ ignored):
    NCCL mesh while ``MESH_DRYRUNS`` trace in subprocesses (rwkv6-1.6b
    ``train_4k`` at 16x16 among them).
 12. The last line: ``{"ok": true, "device": {...}}``; before it a
-   ``kernels`` JSON line (with gemma2-9b's, arctic-480b's, glm4-9b's and
-   granite-34b's attention rows), the ``glue`` line and the nvidia-smi
+   ``kernels`` JSON line (with gemma2-9b's, arctic-480b's, glm4-9b's,
+   granite-34b's and deepseek-moe-16b's attention rows), the ``glue`` line and the nvidia-smi
    line.  Each phase
    prints its seconds.
 
@@ -245,12 +260,26 @@ GLUE = ("add_rmsnorm", "rope", "rope_cache_write", "gated_act")
 TRAIN_EVAL_FLASH = "flash_attention[yi-9b train eval]"
 #: the kernels JSON line's rows: each kernel at its served path's shapes,
 #: and the attention kernels again at gemma2-9b's and arctic-480b's
+#: deepseek-moe-16b at its benchmark cell's shapes: 1024-token prompts, 16
+#: decode steps, a 4096-slot ring; decode at one row a dispatch (what the
+#: cell's arrivals give) and at a full bucket of 8, each row's ring filled
+#: with its prompt and the steps so far
+DS_ARCH = "deepseek-moe-16b"
+DS_SEQ, DS_STEPS, DS_CACHE = 1024, 16, 4096
+DS_FILLED = (1040, 1025, 1032, 1036, 1028, 1039, 1026, 1033)
+#: the reference phase: prompts, the reference's blocks of prompts, and
+#: the served tokens' gap limit (the benchmark cell's ``gap_limit``)
+DS_PROMPTS, DS_BLOCK = 4, 2
+DS_GAP_TOL = 0.34
 KERNEL_ROWS = ("decode_attention", "flash_attention",
                "decode_attention[gemma2-9b]", "flash_attention[gemma2-9b]",
                "flash_attention[gemma2-9b global]", "wkv6", "rglru_scan",
                "decode_attention[arctic-480b]",
                "flash_attention[arctic-480b]", "flash_attention[glm4-9b]",
-               "flash_attention[granite-34b]", TRAIN_EVAL_FLASH)
+               "flash_attention[granite-34b]", TRAIN_EVAL_FLASH,
+               f"decode_attention[{DS_ARCH}]", f"flash_attention[{DS_ARCH}]",
+               f"decode_attention[{DS_ARCH} B 8]",
+               f"flash_attention[{DS_ARCH} B 8]")
 T_START = time.perf_counter()
 #: per path: arch, depth of the f32 token check, depth at which the bf16
 #: logits of the kernel path are held to the 0.05 bar (None: full).
@@ -386,23 +415,24 @@ def host_ms(torch, fn, iters=30):
     return (t1 - t0) / iters * 1e3
 
 
-def _attention_rows(torch, dev, g, flush, suffix, H, K):
-    """Decode attention over a 1024-slot ring with -1 slots and flash
-    attention at [4, H, 256, 128] (K kv heads, causal) against their plain
-    versions in f32 and bf16; the bf16 runs are timed and give the rows
-    ``decode_attention<suffix>`` and ``flash_attention<suffix>``."""
+def _attention_rows(torch, dev, g, flush, suffix, H, K,
+                    filled=(1024, 700, 300, 5), W=1024, S=256):
+    """Decode attention over a ``W``-slot ring with -1 slots (row b holds
+    positions 0 .. ``filled[b]`` - 1, its query the last) and flash
+    attention at [B, H, S, 128] (B = len(filled), K kv heads, causal)
+    against their plain versions in f32 and bf16; the bf16 runs are timed
+    and give the rows ``decode_attention<suffix>`` and
+    ``flash_attention<suffix>``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.decode_attention import decode_attention_plain
 
-    B, hd = 4, 128
+    B, hd = len(filled), 128
     results = {}
-    where = f"H {H}, K {K} (group {H // K})"
+    where = f"B {B}, H {H}, K {K} (group {H // K})"
 
     # -- decode attention over a [B, W, K, hd] ring cache ------------------
-    W = 1024
-    filled = [W, 700, 300, 5]
     kpos = torch.full((B, W), -1, dtype=torch.int32, device=dev)
     for b, n in enumerate(filled):
         kpos[b, :n] = torch.arange(n, dtype=torch.int32, device=dev)
@@ -451,7 +481,7 @@ def _attention_rows(torch, dev, g, flush, suffix, H, K):
             "instance": f"split-S x{splits}",
         }
 
-    results.update(_flash_rows(torch, dev, g, flush, suffix, B, H, K, 256))
+    results.update(_flash_rows(torch, dev, g, flush, suffix, B, H, K, S))
     return results
 
 
@@ -537,6 +567,7 @@ def phase_kernels(torch, dev, flush):
     row["name"] = TRAIN_EVAL_FLASH
     row["shape"] = f"yi-9b: [{TRAIN_B}, 32, {TRAIN_S}, 128], K 4, causal"
     results[TRAIN_EVAL_FLASH] = row
+    results.update(deepseek_attention_rows(torch, dev, flush))
     for r in results.values():
         lib = r["library_ms"]
         lib_text = r.get("library_note") or (
@@ -592,6 +623,27 @@ def gemma2_ring(torch, dev, B=4):
     qpos = torch.tensor([8191, 8192, 8000, 10000][:B], dtype=torch.int32,
                         device=dev)
     return kpos, qpos
+
+
+def deepseek_attention_rows(torch, dev, flush):
+    """Both attention kernels at deepseek-moe-16b's heads (H 16, K 16:
+    MHA, group 1) and its cell's shapes: decode over a ``DS_CACHE``-slot
+    ring filled as ``DS_FILLED`` says and flash at [B, 16, ``DS_SEQ``,
+    128], at B 1 (rows ``<kernel>[deepseek-moe-16b]``) and B 8 (``... B
+    8]``), from a generator of their own."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    rows = {}
+    for suffix, filled in (("", DS_FILLED[:1]), (" B 8", DS_FILLED)):
+        B = len(filled)
+        got = _attention_rows(torch, dev, g, flush, f"[{DS_ARCH}{suffix}]",
+                              16, 16, filled=filled, W=DS_CACHE, S=DS_SEQ)
+        got[f"decode_attention[{DS_ARCH}{suffix}]"]["shape"] = (
+            f"{DS_ARCH}: B {B}, H 16, K 16 (group 1), hd 128, {DS_CACHE} "
+            f"slots, {min(filled)}-{max(filled)} filled")
+        got[f"flash_attention[{DS_ARCH}{suffix}]"]["shape"] = (
+            f"{DS_ARCH}: [{B}, 16, {DS_SEQ}, 128], K 16 (group 1), causal")
+        rows.update(got)
+    return rows
 
 
 def phase_gemma2_kernels(torch, dev, g, flush):
@@ -919,21 +971,29 @@ def _glue_row(torch, flush, name, shape, fn, plain, nbytes, err):
     return row
 
 
-def phase_glue_kernels(torch, dev, flush):
+def phase_glue_kernels(torch, dev, flush, arch="yi-9b", widths=None,
+                       decode_b=GLUE_DECODE_B, prefill=GLUE_PREFILL,
+                       W=CACHE):
     """The four fused glue kernels against their plain versions (the
-    eager composition they replace) at yi-9b's serving shapes: in f32
-    (rel err < the f32 bar) and, timed, in bf16: ``add_rmsnorm`` and
-    ``gated_act`` within one bf16 step of the plain output, the rotated q
-    and k within GLUE_ROPE_BAR, the ring written where the plain write
-    writes and nowhere else.  Returns the bf16 rows by name."""
+    eager composition they replace) at ``arch``'s serving shapes (decode
+    at ``decode_b`` rows over a ``W``-slot ring, prefill at each [B, S] of
+    ``prefill``; ``gated_act`` at each of ``widths``, the MLP's d_ff when
+    None): in f32 (rel err < the f32 bar) and, timed, in bf16:
+    ``add_rmsnorm`` and ``gated_act`` within one bf16 step of the plain
+    output, the rotated q and k within GLUE_ROPE_BAR, the ring written
+    where the plain write writes and nowhere else.  Returns the bf16 rows
+    by name: ``<kernel>[<where>]`` at yi-9b's shapes,
+    ``<kernel>[<arch> <where>]`` at another's, ``gated_act`` with ``F <width>``
+    before ``<where>`` where there are two widths."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import glue
     from repro_torch.models import transformer
 
-    cfg = get_config("yi-9b")
-    D, F, H, K, hd = (cfg.d_model, cfg.d_ff, cfg.num_heads,
-                      cfg.num_kv_heads, cfg.head_dim)
-    W = CACHE
+    cfg = get_config(arch)
+    D, H, K, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                   cfg.head_dim)
+    widths = widths or (cfg.d_ff,)
+    tag = "" if arch == "yi-9b" else f"{arch} "
     g = torch.Generator(device=dev).manual_seed(SEED + 29)
     freqs = transformer.rope_table(hd, cfg.rope_theta, dev)
     rows = {}
@@ -947,8 +1007,8 @@ def phase_glue_kernels(torch, dev, flush):
     for dtype in (torch.float32, torch.bfloat16):
         el = torch.empty((), dtype=dtype).element_size()
         f32 = dtype == torch.float32
-        sizes = [(f"decode B {B}", (B, 1)) for B in GLUE_DECODE_B] + [
-            (f"prefill [{B}, {S}]", (B, S)) for B, S in GLUE_PREFILL]
+        sizes = [(f"decode B {B}", (B, 1)) for B in decode_b] + [
+            (f"prefill [{B}, {S}]", (B, S)) for B, S in prefill]
         for where, (B, S) in sizes:
             T = B * S
             # -- add_rmsnorm: the residual add and the norm after it
@@ -970,7 +1030,7 @@ def phase_glue_kernels(torch, dev, flush):
                 check(max(ulps) <= 1, f"add_rmsnorm bf16 at {where}: x' "
                       f"{ulps[0]}, h {ulps[1]}, h without delta {ulps[2]} "
                       "bf16 steps from the plain version (<= 1)")
-                name = f"add_rmsnorm[{where}]"
+                name = f"add_rmsnorm[{tag}{where}]"
                 rows[name] = _glue_row(
                     torch, flush, name, f"[{B}, {S}, {D}] with delta",
                     lambda: glue.add_rmsnorm(x, d, scale),
@@ -978,34 +1038,11 @@ def phase_glue_kernels(torch, dev, flush):
                     (4 * T * D + D) * el,
                     {"max_abs_err": abs_err(got[1], want[1]),
                      "max_ulps": max(ulps[:2])})
-            # -- gated_act: act(gate) * up at the MLP's width
-            gate, up = randn((B, S, F), dtype), randn((B, S, F), dtype)
-            errs = {}
-            for act in ("silu", "gelu"):
-                got = glue.gated_act(gate, up, act)
-                want = glue.gated_act_plain(gate, up, act)
-                torch.cuda.synchronize()
-                if f32:
-                    err = rel_err(got, want)
-                    check(err < F32_REL, f"gated_act {act} f32 at {where}: "
-                          f"rel err {err} < {F32_REL}")
-                    continue
-                errs[act] = (abs_err(got, want),
-                             _bf16_ulps(torch, got, want))
-                check(errs[act][1] <= 1, f"gated_act {act} bf16 at {where}: "
-                      f"{errs[act][1]} bf16 steps from the plain version "
-                      "(<= 1)")
-            if not f32:
-                name = f"gated_act[{where}]"
-                rows[name] = _glue_row(
-                    torch, flush, name, f"[{B}, {S}, {F}] silu",
-                    lambda: glue.gated_act(gate, up, "silu"),
-                    lambda: glue.gated_act_plain(gate, up, "silu"),
-                    3 * T * F * el,
-                    {"max_abs_err": errs["silu"][0],
-                     "max_ulps": errs["silu"][1],
-                     "gelu_max_abs_err": errs["gelu"][0],
-                     "gelu_max_ulps": errs["gelu"][1]})
+            # -- gated_act: act(gate) * up at the MLP's widths
+            for F in widths:
+                _gated_act_row(torch, flush, rows, dtype, where, (B, S, F),
+                               randn, abs_err, tag + (
+                                   f"F {F} " if len(widths) > 1 else ""))
             if S > 1:
                 # -- rope: the prefill's q and k at positions 0..S-1
                 q = randn((B, S, H * hd), dtype).view(B, S, H, hd)
@@ -1019,7 +1056,7 @@ def phase_glue_kernels(torch, dev, flush):
                 check(err <= bar, f"rope {dtype} at {where}: max abs err "
                       f"{err} <= {bar}")
                 if not f32:
-                    name = f"rope[{where}]"
+                    name = f"rope[{tag}{where}]"
                     rows[name] = _glue_row(
                         torch, flush, name, f"q [{B}, {S}, {H}, {hd}], "
                         f"k [{B}, {S}, {K}, {hd}]",
@@ -1055,7 +1092,7 @@ def phase_glue_kernels(torch, dev, flush):
                   f"<= {bar} (q and the ring), v and positions written "
                   "exactly")
             if not f32:
-                name = f"rope_cache_write[{where}]"
+                name = f"rope_cache_write[{tag}{where}]"
                 rows[name] = _glue_row(
                     torch, flush, name, f"q [{B}, 1, {H}, {hd}], ring "
                     f"[{B}, {W}, {K}, {hd}]",
@@ -1065,7 +1102,44 @@ def phase_glue_kernels(torch, dev, flush):
                                                         *theirs, freqs),
                     (2 * q.numel() + 4 * k.numel()) * el + 8 * B + hd * 2,
                     {"max_abs_err": err})
+    for row in rows.values():
+        row["model"] = arch
     return rows
+
+
+def _gated_act_row(torch, flush, rows, dtype, where, shape, randn, abs_err,
+                   tag):
+    """``gated_act`` at ``shape`` [B, S, F] against its plain version, silu
+    and gelu: rel err in f32; in bf16 within one bf16 step, and the silu
+    launch timed as the row ``gated_act[<tag><where>]``."""
+    from repro_torch.kernels import glue
+
+    B, S, F = shape
+    gate, up = randn(shape, dtype), randn(shape, dtype)
+    errs = {}
+    for act in ("silu", "gelu"):
+        got = glue.gated_act(gate, up, act)
+        want = glue.gated_act_plain(gate, up, act)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            err = rel_err(got, want)
+            check(err < F32_REL, f"gated_act {act} f32 at {where}, F {F}: "
+                  f"rel err {err} < {F32_REL}")
+            continue
+        errs[act] = (abs_err(got, want), _bf16_ulps(torch, got, want))
+        check(errs[act][1] <= 1, f"gated_act {act} bf16 at {where}, F {F}: "
+              f"{errs[act][1]} bf16 steps from the plain version (<= 1)")
+    if dtype == torch.float32:
+        return
+    name = f"gated_act[{tag}{where}]"
+    rows[name] = _glue_row(
+        torch, flush, name, f"[{B}, {S}, {F}] silu",
+        lambda: glue.gated_act(gate, up, "silu"),
+        lambda: glue.gated_act_plain(gate, up, "silu"),
+        3 * B * S * F * gate.element_size(),
+        {"max_abs_err": errs["silu"][0], "max_ulps": errs["silu"][1],
+         "gelu_max_abs_err": errs["gelu"][0],
+         "gelu_max_ulps": errs["gelu"][1]})
 
 
 def _profile_call(torch, fn):
@@ -1087,12 +1161,27 @@ def _profile_call(torch, fn):
     return launches, busy_us / 1e3
 
 
+def deepseek_glue_rows(torch, dev, flush):
+    """The glue rows at deepseek-moe-16b's shapes (D 2048, 16 heads of
+    128): decode at B 1 and 8 over a ``DS_CACHE``-slot ring, prefill at
+    [1, ``DS_SEQ``] and [8, ``DS_SEQ``], ``gated_act`` at the dense
+    layer's width (10944) and the shared experts' (2816)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(DS_ARCH)
+    return phase_glue_kernels(
+        torch, dev, flush, DS_ARCH, widths=(cfg.d_ff, cfg.aux_ff),
+        decode_b=(1, 8), prefill=((1, DS_SEQ), (8, DS_SEQ)), W=DS_CACHE)
+
+
 def phase_glue(torch, dev, smi):
-    """Phase 3's glue part: the rows of :func:`phase_glue_kernels` as the
-    ``glue`` JSON line's object (each row's ``launches`` are filled in
-    from phase 4's yi-9b run), then :func:`phase_glue_step`."""
+    """Phase 3's glue part: the rows of :func:`phase_glue_kernels` at
+    yi-9b's and deepseek-moe-16b's shapes as the ``glue`` JSON line's
+    object (each row's ``launches`` are filled in from its model's run in
+    phase 4 or 9), then :func:`phase_glue_step`."""
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     rows = phase_glue_kernels(torch, dev, flush=scratch.zero_)
+    rows.update(deepseek_glue_rows(torch, dev, flush=scratch.zero_))
     del scratch
     _release(torch)
     phase_glue_step(torch, dev, smi)
@@ -1248,13 +1337,13 @@ def expected_glue(cfg, prefills, steps, ax=None):
     if (cfg.family not in ("dense", "moe", "vlm")
             or not transformer.fused_glue(cfg, ax)):
         return want
-    specs, blocks = transformer.block_layout(cfg)
-    L = blocks * len(specs)
+    slots = transformer.layer_slots(cfg)
+    L = sum(n for _, _, n in slots)
     calls = prefills * (1 + steps)
     want["add_rmsnorm"] = ((4 if cfg.post_norms else 2) * L + 1) * calls
     if cfg.gated_mlp:
-        want["gated_act"] = blocks * sum(
-            1 for sp in specs if not sp.is_moe or sp.aux_mlp) * calls
+        want["gated_act"] = sum(n for _, sp, n in slots
+                                if not sp.is_moe or sp.aux_mlp) * calls
     want["rope"] = L * prefills
     want["rope_cache_write"] = L * steps * prefills
     return want
@@ -3197,7 +3286,7 @@ def phase_families(torch, dev, smi):
 #: layer, then a MoE layer with its shared expert) is 35.0 GB in bf16 and
 #: 70.1 GB in f32.  whisper-medium runs at full depth (24 + 24 layers).
 FAMILIES2 = (("arctic-480b", 2, 1), ("llama4-maverick-400b-a17b", 2, 2),
-             ("whisper-medium", None, 24))
+             ("whisper-medium", None, 24), (DS_ARCH, None, 2))
 #: the served MoE layer against the masked combine in f32
 MOE_F32_REL = 1e-5
 
@@ -3208,18 +3297,9 @@ def _routes(torch, fn):
     [tokens, k] sorted)."""
     from repro_torch.models import moe
 
-    seen, real = [], moe._router
-
-    def recording(xf, router_w, k, *rest):
-        out = real(xf, router_w, k, *rest)
-        seen.append(torch.sort(out[1], dim=-1).values)
-        return out
-
-    moe._router = recording
-    try:
-        return fn(), seen
-    finally:
-        moe._router = real
+    with moe.recorded_routes() as seen:
+        out = fn()
+    return out, [torch.sort(e, dim=-1).values for e in seen]
 
 
 def _held_rows(torch, fwd, dec):
@@ -3318,8 +3398,8 @@ def moe_layer_check(torch, dev, cfg, params, bar):
     from repro_torch.interop import torch_dtype
     from repro_torch.models import moe, transformer
 
-    specs, _ = transformer.block_layout(cfg)
-    blk = str(next(i for i, sp in enumerate(specs) if sp.is_moe))
+    blk = str(next(key for key, sp, _ in transformer.layer_slots(cfg)
+                   if sp.is_moe))
     lp = {k: v[0] for k, v in params["blocks"][blk]["moe"].items()}
     per_expert = sum(w[0].numel() * w.element_size()
                      for name, w in lp.items() if name != "router")
@@ -3386,6 +3466,142 @@ def phase_expert_quant(torch, dev, cfg):
           flush=True)
     del model, params
     _release(torch)
+
+
+def _ds_serve(torch, model, params, prompts, steps, cache_len):
+    """Logits [N, steps + 1, V] (f32), greedy tokens [N, steps + 1] and
+    each MoE call's routes (experts [T, k]) of a prefill and ``steps``
+    decode steps: the functions the cascade's stages call
+    (``Model.prefill``, ``Model.decode_step``), each step's token the
+    argmax of the last logits."""
+    from repro_torch.models import moe
+
+    with moe.recorded_routes() as routes:
+        lg, cache = model.prefill(params, {"tokens": prompts}, cache_len)
+        logits = [lg[:, -1].float()]
+        pos = torch.full((prompts.shape[0],), prompts.shape[1],
+                         dtype=torch.int32, device=prompts.device)
+        for _ in range(steps):
+            tok = logits[-1].argmax(-1).to(torch.int32)[:, None]
+            lg, cache = model.decode_step(params, tok, pos, cache)
+            logits.append(lg[:, -1].float())
+            pos = pos + 1
+    logits = torch.stack(logits, 1)
+    return logits, logits.argmax(-1).to(torch.int32), routes
+
+
+def _ds_reference(torch, params, cfg, seq, positions, quant=None):
+    """The plain reference's logits at ``positions`` of each sequence of
+    ``seq``, ``DS_BLOCK`` sequences at a time, and with ``quant`` None
+    each block's MoE layers' (experts, probabilities, router input)."""
+    from repro_torch.reference import deepseek_moe as ref
+
+    out, info = [], []
+    for i in range(0, seq.shape[0], DS_BLOCK):
+        routes = [] if quant is None else None
+        out.append(ref.logits_at(params, cfg, seq[i:i + DS_BLOCK],
+                                 positions, quant=quant, routes=routes))
+        if routes is not None:
+            info.append(routes)
+    return torch.cat(out), info
+
+
+def phase_deepseek_reference(torch, dev, smi):
+    """deepseek-moe-16b at full width and depth against its plain float32
+    reference (``repro_torch.reference.deepseek_moe``) at its cell's
+    shapes: ``DS_PROMPTS`` random prompts of ``DS_SEQ`` tokens, a prefill
+    and ``DS_STEPS`` greedy decode steps through a ``DS_CACHE``-slot cache
+    (bf16, kernels on), then the reference over each prompt and its served
+    tokens in float32 and on float8 operands (the control).  At each
+    served position: ``rel``, the logits' max |served - reference| over
+    max |reference|, held to BF16_REL (the reference package's bar for
+    bfloat16); ``gap``, the reference's best logit less the served
+    token's, held to DS_GAP_TOL; the same two of the control; the share of
+    the position's routes that the served path took as the reference did;
+    and the reference's smallest router margin over the MoE layers (its
+    k-th largest logit less its (k+1)-th) beside ``bf16_round``, the
+    largest change of a router logit that rounding the router's input to
+    bfloat16 makes there.  Checks: a position over a tolerance only where
+    that margin lies within the rounding (a route that rounding alone can
+    flip), and the control over a tolerance at some position.  Prints a
+    ``deepseek_reference:`` JSON line."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(DS_ARCH), use_kernels=True)
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    N, S, steps, k = DS_PROMPTS, DS_SEQ, DS_STEPS, cfg.num_experts_per_tok
+    prompts = torch.randint(0, cfg.vocab_size, (N, S), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(
+                                SEED + 1)).to(dev)
+    t = time.perf_counter()
+    got, toks, routes = _ds_serve(torch, model, params, prompts, steps,
+                                  DS_CACHE)
+    serve_s = time.perf_counter() - t
+    seq = torch.cat([prompts, toks[:, :-1]], 1)
+    c = dataclasses.asdict(cfg)
+    positions = range(S - 1, S + steps)
+    t = time.perf_counter()
+    want, info = _ds_reference(torch, params, c, seq, positions)
+    ctl, _ = _ds_reference(torch, params, c, seq, positions,
+                           quant="fp8")
+    ref_s = time.perf_counter() - t
+    n_moe = cfg.num_layers - cfg.first_k_dense
+    router_w = params["blocks"]["1"]["moe"]["router"]
+    rows = []
+    for n in range(N):
+        blk, r = divmod(n, DS_BLOCK)
+        for s in range(steps + 1):
+            p = S - 1 + s                     # the position in seq
+            g, w, q = got[n, s], want[n, s], ctl[n, s]
+            same, margin, rnd = 0.0, float("inf"), 0.0
+            for layer in range(n_moe):
+                top_i, probs, u = info[blk][layer]
+                t_ref = r * seq.shape[1] + p
+                served = (routes[layer].reshape(N, S, k)[n, p] if s == 0
+                          else routes[n_moe * s + layer][n])
+                same += float(torch.equal(torch.sort(served).values,
+                                          torch.sort(top_i[t_ref]).values))
+                z = torch.log(probs[t_ref]).sort(descending=True).values
+                margin = min(margin, float(z[k - 1] - z[k]))
+                d = (u[t_ref].to(torch.bfloat16).float() - u[t_ref]) \
+                    @ router_w[layer].float()
+                rnd = max(rnd, 2 * float(d.abs().max()))
+            row = {"prompt": n, "step": s, "rel": rel_err(g, w),
+                   "gap": float(w.max() - w[int(g.argmax())]),
+                   "ctl_rel": rel_err(q, w),
+                   "ctl_gap": float(w.max() - w[int(q.argmax())]),
+                   "routes": same / n_moe, "margin": margin,
+                   "bf16_round": rnd}
+            rows.append(row)
+            print("  " + json.dumps(row), flush=True)
+    over = [r for r in rows if r["rel"] > BF16_REL or r["gap"] > DS_GAP_TOL]
+    unexplained = [(r["prompt"], r["step"]) for r in over
+                   if r["margin"] > r["bf16_round"]]
+    ctl_over = [r for r in rows if r["ctl_rel"] > BF16_REL
+                or r["ctl_gap"] > DS_GAP_TOL]
+    summary = {
+        "model": DS_ARCH, "positions": len(rows),
+        "max_rel": max(r["rel"] for r in rows),
+        "max_gap": max(r["gap"] for r in rows),
+        "ctl_max_rel": max(r["ctl_rel"] for r in rows),
+        "ctl_max_gap": max(r["ctl_gap"] for r in rows),
+        "over": [(r["prompt"], r["step"]) for r in over],
+        "unexplained": unexplained, "ctl_over": len(ctl_over),
+        "min_route_agreement": min(r["routes"] for r in rows),
+        "serve_s": serve_s, "reference_s": ref_s, "device": smi}
+    print("deepseek_reference: " + json.dumps(summary), flush=True)
+    check(not unexplained, f"{DS_ARCH}: {len(over)} of {len(rows)} positions "
+          f"over rel {BF16_REL} or gap {DS_GAP_TOL}, each where the "
+          f"reference's router margin lies within the bf16 rounding of its "
+          f"input (unexplained: {unexplained})")
+    check(ctl_over, f"{DS_ARCH}: the float8 control over a tolerance at "
+          f"{len(ctl_over)} of {len(rows)} positions (rel up to "
+          f"{summary['ctl_max_rel']}, gap up to {summary['ctl_max_gap']})")
+    del model, params
+    _release(torch)
+    return summary
 
 
 def phase_frames(torch, dev, cfg, model, params, toks):
@@ -4515,6 +4731,18 @@ def _phase(name, t_prev=None):
     return now
 
 
+def _glue_row_launches(glue_line, arch, glue_n):
+    """Give ``arch``'s glue rows the launches of its kernels in its path's
+    run (phase 4 or 9)."""
+    for row in glue_line["glue"]:
+        if row["model"] == arch:
+            row["launches"] = glue_n[row["name"].split("[")[0]]
+            row["launches_per"] = (
+                f"{PATH_DISPATCHES[arch]} dispatches of full-depth {arch}'s"
+                f" cascade, a prefill and {STEPS} decode steps each; "
+                "gated_act at all its widths")
+
+
 def main() -> int:
     import torch
 
@@ -4555,13 +4783,7 @@ def main() -> int:
             torch, dev, arch, f32_layers, logits_layers, keep=arch == "yi-9b")
         if kept is not None:
             served[arch] = kept  # phase 5 serves yi-9b's weights
-        if arch == "yi-9b":      # the glue rows are at yi-9b's shapes
-            for row in glue_line["glue"]:
-                row["launches"] = glue_n[row["name"].split("[")[0]]
-                row["launches_per"] = (
-                    f"{PATH_DISPATCHES[arch]} dispatches of full-depth "
-                    f"yi-9b's cascade, a prefill and {STEPS} decode steps "
-                    "each (phase 4)")
+        _glue_row_launches(glue_line, arch, glue_n)
         suffix = f"[{arch}]" if f"flash_attention[{arch}]" in kernels else ""
         for name, n in launches.items():
             if n:
@@ -4599,12 +4821,17 @@ def main() -> int:
     t0 = _phase("families II", t0)
     for arch, layers, f32_layers in FAMILIES2:
         _release(torch)
-        launches, _, _, _ = phase_path(torch, dev, arch, f32_layers, None,
-                                       layers=layers)
+        launches, glue_n, _, _ = phase_path(torch, dev, arch, f32_layers,
+                                            None, layers=layers)
         if f"flash_attention[{arch}]" in kernels:
             for name, n in launches.items():
                 if n:
                     kernels[f"{name}[{arch}]"]["launches"] = n
+        _glue_row_launches(glue_line, arch, glue_n)
+
+    t0 = _phase("deepseek reference", t0)
+    _release(torch)
+    phase_deepseek_reference(torch, dev, smi)
 
     t0 = _phase("training", t0)
     _release(torch)

@@ -1,7 +1,9 @@
 """Config registry for the port: one module per architecture, copied
 from the reference package (all ten: the dense archs with gemma2, the MoE
 archs arctic and llama4, the llama-3.2-vision vlm, whisper, rwkv6 and
-recurrentgemma), plus the reference's input-shape table."""
+recurrentgemma; ``ARCH_IDS``), the architectures the port serves beyond
+the reference (``PORT_ARCH_IDS``: deepseek-moe-16b), plus the
+reference's input-shape table."""
 from __future__ import annotations
 
 import importlib
@@ -25,21 +27,32 @@ _MODULES = {
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
 
+#: the reference package's architectures, each compared with it
 ARCH_IDS = tuple(_MODULES)
+
+#: architectures the port alone serves (no counterpart to compare with)
+_PORT_MODULES = {
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
+}
+PORT_ARCH_IDS = tuple(_PORT_MODULES)
+
+
+def _module(arch: str):
+    name = _MODULES.get(arch) or _PORT_MODULES.get(arch)
+    if name is None:
+        raise KeyError(f"unknown arch {arch!r}; known: "
+                       f"{sorted(ARCH_IDS + PORT_ARCH_IDS)}")
+    return importlib.import_module(name)
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
-    cfg = importlib.import_module(_MODULES[arch]).CONFIG
+    cfg = _module(arch).CONFIG
     cfg.validate()
     return cfg
 
 
 def get_tiny_config(arch: str) -> ModelConfig:
-    if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
-    cfg = importlib.import_module(_MODULES[arch]).tiny()
+    cfg = _module(arch).tiny()
     cfg.validate()
     return cfg
 

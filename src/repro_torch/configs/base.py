@@ -22,6 +22,9 @@ class ModelConfig:
 
     The fields cover all six assigned families: dense / moe / ssm / hybrid /
     vlm / audio.  Family-specific fields are ignored by other families.
+    ``tie_embeddings`` is read by the transformer families: off, the output
+    head is a ``head`` leaf of its own (deepseek-moe-16b), else the
+    embedding table.
     """
 
     name: str
@@ -52,6 +55,15 @@ class ModelConfig:
     dense_residual: bool = False      # arctic: parallel dense FFN in MoE layers
     shared_expert: bool = False       # llama4: one always-on expert
     expert_d_ff: int = 0              # defaults to d_ff
+    # deepseek-moe: the first k layers keep a dense FFN (d_ff wide) before
+    # the MoE pattern starts (``first_k_dense_replace``)
+    first_k_dense: int = 0
+    # the always-on MLP's width (shared experts / dense residual), d_ff
+    # when 0; deepseek-moe's two shared experts of 1408 are one of 2816
+    shared_expert_d_ff: int = 0
+    # renormalise the k routing weights to sum to 1 (arctic, llama4); off,
+    # a token keeps its k softmax probabilities (``norm_topk_prob``)
+    norm_topk_prob: bool = True
     capacity_factor: float = 1.25
     router_aux_loss_coef: float = 0.01
 
@@ -73,6 +85,8 @@ class ModelConfig:
     post_norms: bool = False          # gemma2 post-attn/post-ffn norms
     act: str = "silu"                 # silu | gelu
     gated_mlp: bool = True            # 3-matrix SwiGLU vs 2-matrix MLP
+    # the output head is the embedding table; False adds a separate
+    # ``head`` leaf [padded_vocab, d_model] (``models/transformer.py``)
     tie_embeddings: bool = True
     embedding_scale: bool = False     # gemma-style sqrt(d) input scaling
     dtype: str = "bfloat16"
@@ -106,6 +120,20 @@ class ModelConfig:
     @property
     def expert_ff(self) -> int:
         return self.expert_d_ff or self.d_ff
+
+    @property
+    def aux_ff(self) -> int:
+        """Width of a MoE layer's always-on MLP (``aux_mlp``)."""
+        return self.shared_expert_d_ff or self.d_ff
+
+    def is_moe_layer(self, layer: int) -> bool:
+        """Whether layer ``layer`` (from 0) has a MoE FFN: past the
+        ``first_k_dense`` dense layers, the last of every
+        ``moe_layer_period``."""
+        if self.num_experts == 0 or layer < self.first_k_dense:
+            return False
+        p = self.moe_layer_period
+        return (layer - self.first_k_dense) % p == p - 1
 
     @property
     def rnn_dim(self) -> int:
@@ -154,14 +182,11 @@ class ModelConfig:
             elif self.family == "hybrid":
                 R = self.rnn_dim
                 n += 2 * D * R + R * D + R * self.conv_width + 2 * R * R // 8
-            is_moe = (self.num_experts > 0
-                      and (layer % self.moe_layer_period)
-                      == (self.moe_layer_period - 1))
-            if is_moe:
+            if self.is_moe_layer(layer):
                 n += D * self.num_experts                   # router
                 n += self.num_experts * self.mlp_mats * D * self.expert_ff
                 if self.dense_residual or self.shared_expert:
-                    n += self.mlp_mats * D * F
+                    n += self.mlp_mats * D * self.aux_ff
             else:
                 n += self.mlp_mats * D * F
             if self.cross_attn_period and (layer % self.cross_attn_period
@@ -182,8 +207,7 @@ class ModelConfig:
         full = self.param_count()
         # subtract inactive expert params
         moe_layers = sum(1 for layer in range(self.num_layers)
-                         if (layer % self.moe_layer_period)
-                         == (self.moe_layer_period - 1))
+                         if self.is_moe_layer(layer))
         per_expert = self.mlp_mats * self.d_model * self.expert_ff
         inactive = moe_layers * (self.num_experts
                                  - self.num_experts_per_tok) * per_expert
@@ -196,6 +220,7 @@ class ModelConfig:
         if self.num_experts:
             assert self.num_experts_per_tok >= 1
         assert self.d_model > 0 and self.num_layers > 0 and self.vocab_size > 0
+        assert 0 <= self.first_k_dense < self.num_layers
 
 
 def human(n: float) -> str:

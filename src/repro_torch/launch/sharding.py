@@ -50,7 +50,7 @@ def _leaf_spec(keys, leaf, cfg: ModelConfig, ax: AxisInfo, *,
     nd = leaf.ndim
     moe_fsdp = ax.data
 
-    if name == "embed":
+    if name in ("embed", "head"):       # head: an untied output table
         return P(mp, fsdp)
     if "moe" in keys:
         if name == "router":

@@ -32,10 +32,22 @@ axis of 1 under a mesh the served path runs in such a region too, on
 each rank's own tokens (``torch._grouped_mm`` has no DTensor rule), and
 its load-balance statistics are averaged over the data ranks, so the
 loss is the global one.
+
+The router renormalises each token's k weights to sum to 1 where
+``cfg.norm_topk_prob`` holds (arctic, llama4: the reference's router);
+with it off (deepseek-moe) a token keeps its k softmax probabilities.
+
+:func:`moe_apply_grouped` counts its calls in ``moe_apply_grouped.calls``
+and the routed (token, expert) pairs, tokens x k, in
+``moe_apply_grouped.pairs``: host counters from the shapes alone, which
+read nothing back from the device.  :func:`recorded_routes` lists the
+experts each router call chose, for the checks that compare routes.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -135,11 +147,12 @@ def _expert_ffn(x, w_gate, w_up, w_down, act: str, gated: bool):
     return torch.einsum("...ecf,efd->...ecd", h, w_down.to(dt))
 
 
-def _router(xf, router_w, k: int, mean=None):
+def _router(xf, router_w, k: int, mean=None, renorm: bool = True):
     """xf: [T, D] -> (weights [T, k] f32, experts [T, k] int64, aux loss
     scalar f32).  f32 logits and softmax, the k largest probabilities
-    renormalised by ``max(sum, 1e-9)``, and the Switch load-balance loss
-    from each token's first choice.  Ties go to the lower expert, as
+    (renormalised by ``max(sum, 1e-9)`` with ``renorm``, as they are
+    without), and the Switch load-balance loss from each token's first
+    choice.  Ties go to the lower expert, as
     ``jax.lax.top_k`` has them: a stable descending sort, where
     ``torch.topk`` leaves the order of ties open.  ``mean`` (optional)
     averages the two load-balance statistics over ranks."""
@@ -147,7 +160,8 @@ def _router(xf, router_w, k: int, mean=None):
     probs = torch.softmax(logits, dim=-1)                        # [T, E]
     top_w, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_w, top_i = top_w[:, :k], top_i[:, :k]
-    top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
+    if renorm:
+        top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
     T, E = probs.shape
     me = probs.mean(dim=0)                                       # router frac
     # first-choice counts without a one-hot (or bincount, whose length
@@ -161,13 +175,35 @@ def _router(xf, router_w, k: int, mean=None):
     return top_w, top_i, aux
 
 
+@contextlib.contextmanager
+def recorded_routes():
+    """Within the block every :func:`_router` call of this module appends
+    the experts it chose ([T, k], in the call's order) to the list it
+    yields.  Not thread-safe: the checks that compare routes call the
+    model from one thread."""
+    global _router
+    routes, real = [], _router
+
+    def recording(*args, **kwargs):
+        out = real(*args, **kwargs)
+        routes.append(out[1])
+        return out
+
+    _router = recording
+    try:
+        yield routes
+    finally:
+        _router = real
+
+
 def moe_apply_reference(x, params, cfg: ModelConfig):
     """x: [B, S, D] -> (y [B, S, D], aux).  The reference's exact masked
     combine over all E experts, accumulated in f32 (the plain version)."""
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     xf = x.reshape(-1, D)
-    top_w, top_i, aux = _router(xf, params["router"], k)
+    top_w, top_i, aux = _router(xf, params["router"], k,
+                                renorm=cfg.norm_topk_prob)
     out = torch.zeros(xf.shape, dtype=torch.float32, device=x.device)
 
     def sl(w, e):
@@ -205,7 +241,11 @@ def moe_apply_grouped(x, params, cfg: ModelConfig, mean=None
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     xf = x.reshape(-1, D)
     T = xf.shape[0]
-    top_w, top_i, aux = _router(xf, params["router"], k, mean)
+    with _COUNT_LOCK:              # executor threads run layers at once
+        moe_apply_grouped.calls += 1
+        moe_apply_grouped.pairs += T * k
+    top_w, top_i, aux = _router(xf, params["router"], k, mean,
+                                renorm=cfg.norm_topk_prob)
     flat_e = top_i.reshape(-1)                                   # [T*k]
     order = torch.argsort(flat_e, stable=True)      # pairs, by expert
     token = order // k
@@ -229,6 +269,10 @@ def moe_apply_grouped(x, params, cfg: ModelConfig, mean=None
     y.index_add_(0, token, gate[:, None] * out_rows.float())
     return y.reshape(B, S, D).to(x.dtype), aux
 
+
+_COUNT_LOCK = threading.Lock()
+moe_apply_grouped.calls = 0
+moe_apply_grouped.pairs = 0
 
 
 # ---------------------------------------------------------------------------
@@ -266,7 +310,7 @@ def _dispatch_combine_local(xf, router_w, w_gate, w_up, w_down, *,
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     C = _capacity(T, k, E, cfg.capacity_factor)
 
-    top_w, top_i, aux = _router(xf, router_w, k)
+    top_w, top_i, aux = _router(xf, router_w, k, renorm=cfg.norm_topk_prob)
     flat_e = top_i.reshape(-1)                                   # [T*k]
     flat_w = top_w.reshape(-1)
     dev = xf.device

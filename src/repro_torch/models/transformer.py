@@ -11,6 +11,14 @@ reference:
 * arctic:                     block = [attn+moe(+dense res)]    x L
 * llama4-maverick:            block = [attn+mlp, attn+moe]      x L/2
 * llama-3.2-vision:           block = [plain x4, cross+plain]   x L/5
+* deepseek-moe:               [attn+mlp] x 1, then
+                              block = [attn+moe+shared]         x (L-1)
+
+A dense prefix (``cfg.first_k_dense`` leading layers with a dense MLP,
+deepseek-moe's first layer) runs before the repeated block as a group of
+its own (:func:`layer_groups`): its params and cache take the first keys
+(``blocks/0``, ``k0``, ...), stacked over the prefix's layers, and the
+block's keys follow.
 
 Parameters keep the reference's layer-stacked layout (``blocks/"<i>"/...``
 leaves carry the block axis first), so bridged JAX params drop straight
@@ -21,7 +29,10 @@ with ``kv_quant`` the ring holds int8 values and ``ks<i>``/``vs<i>``
 ``[n_blocks, B, W, K]`` f32 scales; a cross layer adds the media K/V
 ``ck<i>``/``cv<i>`` ``[n_blocks, B, M, K, hd]``.  A MoE layer's FFN is
 :func:`repro_torch.models.moe.moe_apply` (plus the dense residual or the
-shared expert, ``aux_mlp``); its caches are the dense ones.
+shared experts, ``aux_mlp``, ``cfg.aux_ff`` wide), inside a ``moe``
+profiler range (``obs/trace.scope``); its caches are the dense ones.
+With ``tie_embeddings`` off the output head is a ``head`` leaf
+``[padded_vocab, D]`` of its own, else the embedding table.
 
 The prefill keeps the reference's ring layout: a layer of window W < S
 stores positions S-W..S-1 at slots 0..W-1, while a decode step writes
@@ -71,6 +82,7 @@ from repro_torch.models.partition import (AxisInfo, P, dp_axes, gather_fsdp,
                                           heads_spec, local_region, mp_axis,
                                           mp_size, reshard, rows, shard,
                                           vocab_table)
+from repro_torch.obs.trace import scope
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,13 +95,15 @@ class LayerSpec:
 
 def block_layout(cfg: ModelConfig, *, long_context: bool = False
                  ) -> Tuple[List[LayerSpec], int]:
-    """Return (specs for one block, n_blocks).  A config of a family this
-    module does not serve raises."""
+    """Return (specs for one block, n_blocks) of the repeated block: the
+    layers after the ``cfg.first_k_dense`` dense prefix, all of them
+    where there is none (:func:`layer_groups` has the prefix).  A config
+    of a family this module does not serve raises."""
     if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not a transformer family (dense, "
             "moe and vlm)")
-    L = cfg.num_layers
+    L = cfg.num_layers - cfg.first_k_dense
     if cfg.family == "vlm" and cfg.cross_attn_period:
         p = cfg.cross_attn_period
         if L % p:
@@ -113,9 +127,43 @@ def block_layout(cfg: ModelConfig, *, long_context: bool = False
                              f"blocks of {p}")
         return [LayerSpec() for _ in range(p - 1)] + [
             LayerSpec(is_moe=True, aux_mlp=cfg.shared_expert)], L // p
-    if cfg.num_experts:  # arctic
-        return [LayerSpec(is_moe=True, aux_mlp=cfg.dense_residual)], L
+    if cfg.num_experts:  # arctic, deepseek-moe
+        return [LayerSpec(is_moe=True, aux_mlp=cfg.dense_residual
+                          or cfg.shared_expert)], L
     return [LayerSpec()], L
+
+
+#: one group of layers: (the key of its first layer, the specs of one
+#: repeat, the repeats)
+Group = Tuple[int, List[LayerSpec], int]
+
+
+def layer_groups(cfg: ModelConfig, *, long_context: bool = False
+                 ) -> List[Group]:
+    """The layers in the order they run, as groups ``(first, specs, n)``:
+    ``n`` repeats of ``specs``, whose layer i keeps its params under
+    ``blocks/<first + i>`` and its cache leaves under ``k<first + i>``,
+    ``v<first + i>``, ... (each stacked over the ``n`` repeats).  Without
+    a dense prefix one group, ``(0, *block_layout(cfg))``.  With
+    ``cfg.first_k_dense`` = p the p dense layers come first, ``(0,
+    [LayerSpec()], p)``, and the block follows from key 1: deepseek-moe's
+    ``blocks/0`` is its dense layer 0 and ``blocks/1`` its 27 MoE
+    layers."""
+    specs, n = block_layout(cfg, long_context=long_context)
+    if not cfg.first_k_dense:
+        return [(0, specs, n)]
+    return [(0, [LayerSpec()], cfg.first_k_dense), (1, specs, n)]
+
+
+def _block_slices(blocks, groups: List[Group]):
+    """``(first, specs, j, params)`` of every block of ``groups`` in the
+    order they run: ``params`` the j-th slice of the group's
+    ``blocks/<first + i>`` leaves (views)."""
+    for first, specs, n in groups:
+        sub = blocks if len(groups) == 1 else {
+            str(c): blocks[str(c)] for c in range(first, first + len(specs))}
+        for j in range(n):
+            yield first, specs, j, layers.layer_slice(sub, j)
 
 
 # ---------------------------------------------------------------------------
@@ -139,8 +187,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     dtype = torch_dtype(cfg.dtype)
-    specs, n = block_layout(cfg, long_context=long_context)
-    D, hd, F = cfg.d_model, cfg.head_dim, cfg.d_ff
+    D, hd = cfg.d_model, cfg.head_dim
     mp = mp_size(ax)
     Hp, Kp = cfg.padded_heads(mp), cfg.replicated_kv_heads(mp)
 
@@ -148,7 +195,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         return layers.dense_init(shape, dtype, fan_in=fan_in,
                                  generator=generator, device=dev)
 
-    def norm(lead=(n,)):
+    def norm(lead):
         return layers.init_norm(D, cfg.norm, dtype, dev, lead=lead)
 
     params: Dict[str, Any] = {
@@ -156,49 +203,55 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         "final_norm": norm(()),
         "blocks": {},
     }
-    def mlp():
+
+    def mlp(n, F):
         p = {"w_up": dense((n, D, F), D), "w_down": dense((n, F, D), F)}
         if cfg.gated_mlp:
             p["w_gate"] = dense((n, D, F), D)
         return p
 
-    for i, spec in enumerate(specs):
-        ffn: Dict[str, Any] = {}
-        if spec.is_moe:
-            m = moe_lib.moe_init(cfg, dtype, n, generator=generator,
-                                 device=dev)
-            if cfg.expert_quant:
-                # one matrix at a time, so the stack it replaces is freed
-                for name in [k for k in m if k != "router"]:
-                    m[name] = moe_lib.quantize_expert_weights(
-                        {name: m[name]})[name]
-            ffn["moe"] = m
-            if spec.aux_mlp:
-                ffn["aux_mlp"] = mlp()
-        else:
-            ffn["mlp"] = mlp()
-        lp: Dict[str, Any] = {
-            "ln1": norm(),
-            "attn": {"wq": dense((n, D, Hp * hd), D),
-                     "wk": dense((n, D, Kp * hd), D),
-                     "wv": dense((n, D, Kp * hd), D),
-                     "wo": dense((n, Hp * hd, D), Hp * hd)},
-            "ln2": norm(),
-            **ffn,
-        }
-        if cfg.post_norms:
-            lp["post_ln1"] = norm()
-            lp["post_ln2"] = norm()
-        if spec.has_cross:
-            lp["cross"] = {
-                "ln": norm(),
-                "wq": dense((n, D, Hp * hd), D),
-                "wk": dense((n, D, Kp * hd), D),
-                "wv": dense((n, D, Kp * hd), D),
-                "wo": dense((n, Hp * hd, D), Hp * hd),
-                "gate": torch.zeros((n,), dtype=torch.float32, device=dev),
+    for first, specs, n in layer_groups(cfg, long_context=long_context):
+        for i, spec in enumerate(specs):
+            ffn: Dict[str, Any] = {}
+            if spec.is_moe:
+                m = moe_lib.moe_init(cfg, dtype, n, generator=generator,
+                                     device=dev)
+                if cfg.expert_quant:
+                    # one matrix at a time, so the stack it replaces is
+                    # freed
+                    for name in [k for k in m if k != "router"]:
+                        m[name] = moe_lib.quantize_expert_weights(
+                            {name: m[name]})[name]
+                ffn["moe"] = m
+                if spec.aux_mlp:
+                    ffn["aux_mlp"] = mlp(n, cfg.aux_ff)
+            else:
+                ffn["mlp"] = mlp(n, cfg.d_ff)
+            lp: Dict[str, Any] = {
+                "ln1": norm((n,)),
+                "attn": {"wq": dense((n, D, Hp * hd), D),
+                         "wk": dense((n, D, Kp * hd), D),
+                         "wv": dense((n, D, Kp * hd), D),
+                         "wo": dense((n, Hp * hd, D), Hp * hd)},
+                "ln2": norm((n,)),
+                **ffn,
             }
-        params["blocks"][str(i)] = lp
+            if cfg.post_norms:
+                lp["post_ln1"] = norm((n,))
+                lp["post_ln2"] = norm((n,))
+            if spec.has_cross:
+                lp["cross"] = {
+                    "ln": norm((n,)),
+                    "wq": dense((n, D, Hp * hd), D),
+                    "wk": dense((n, D, Kp * hd), D),
+                    "wv": dense((n, D, Kp * hd), D),
+                    "wo": dense((n, Hp * hd, D), Hp * hd),
+                    "gate": torch.zeros((n,), dtype=torch.float32,
+                                        device=dev),
+                }
+            params["blocks"][str(first + i)] = lp
+    if not cfg.tie_embeddings:
+        params["head"] = dense((cfg.padded_vocab, D), D)
     return params
 
 
@@ -262,6 +315,14 @@ def _residual_add(x, y, fused: bool):
     if fused:
         return x, y
     return x + y, None
+
+
+def _head(params, table, cfg: ModelConfig, ax):
+    """The output head: the embedding table, or with ``tie_embeddings``
+    off the ``head`` leaf, placed as the table is."""
+    if cfg.tie_embeddings:
+        return table
+    return reshard(ax, params["head"], mp_axis(ax), None)
 
 
 def _flush(x, delta):
@@ -457,9 +518,10 @@ def _layer_ffn(x, lp, spec: LayerSpec, cfg: ModelConfig, ax=None, *,
     Returns (y, aux): the router's load-balance loss (None for a dense
     layer), which only the training loss reads."""
     if spec.is_moe:
-        y, aux = moe_lib.moe_apply(x, lp["moe"], cfg, ax,
-                                   seq_sharded=seq_sharded,
-                                   dispatch=moe_dispatch)
+        with scope("moe", span=False):
+            y, aux = moe_lib.moe_apply(x, lp["moe"], cfg, ax,
+                                       seq_sharded=seq_sharded,
+                                       dispatch=moe_dispatch)
         if spec.aux_mlp:
             y = y + rows(ax, _mlp(rows(ax, x), lp["aux_mlp"], cfg, ax))
         return y, aux
@@ -491,7 +553,7 @@ def forward(params, tokens, cfg: ModelConfig, *, ax: Optional[AxisInfo] = None,
 
     Differentiable: the caller picks grad mode (the serving entry points
     run under ``torch.no_grad``; the training loss does not)."""
-    specs, n_blocks = block_layout(cfg, long_context=long_context)
+    groups = layer_groups(cfg, long_context=long_context)
     B, S = tokens.shape
     dev = tokens.device
     positions = torch.arange(S, dtype=torch.int32, device=dev)
@@ -515,14 +577,15 @@ def forward(params, tokens, cfg: ModelConfig, *, ax: Optional[AxisInfo] = None,
             return shard(ax, t, dp, seq_ax, None)
         return rows(ax, t)
 
-    def block_fn(x, delta, blk):
-        """One block from the residual ``x`` (and, with the fused glue,
-        the last layer's held-back ``delta``, else None)."""
+    def block_fn(x, delta, blk, first: int, specs: List[LayerSpec]):
+        """One block of a group (:func:`layer_groups`) from the residual
+        ``x`` (and, with the fused glue, the last layer's held-back
+        ``delta``, else None)."""
         auxes: List[torch.Tensor] = []
         cache_out: Dict[str, torch.Tensor] = {}
         blk = gather_fsdp(ax, blk)
         x = shard(ax, x, dp, seq_ax, None)
-        for i, spec in enumerate(specs):
+        for i, spec in enumerate(specs, first):
             lp = blk[str(i)]
             # ``cfg.bf16_boundary`` pins the norm's bf16 output with an
             # XLA barrier in the reference, so that XLA cannot hoist the
@@ -568,14 +631,13 @@ def forward(params, tokens, cfg: ModelConfig, *, ax: Optional[AxisInfo] = None,
     caches: Dict[str, List[torch.Tensor]] = {}
     auxes: List[torch.Tensor] = []
     delta = None
-    for j in range(n_blocks):
-        x, delta, cache_out, blk_aux = body(
-            x, delta, layers.layer_slice(params["blocks"], j))
+    for first, specs, _, blk in _block_slices(params["blocks"], groups):
+        x, delta, cache_out, blk_aux = body(x, delta, blk, first, specs)
         auxes += blk_aux
         for name, t in cache_out.items():
             caches.setdefault(name, []).append(t)
     _, x = _norm_of(x, delta, params["final_norm"], cfg, fused)
-    logits = layers.unembed(rows(ax, x), table,
+    logits = layers.unembed(rows(ax, x), _head(params, table, cfg, ax),
                             softcap=cfg.final_logit_softcap)
     logits = shard(ax, logits, dp, seq_ax, None)
     out = (logits,)
@@ -637,6 +699,17 @@ def _ring_slots(i: int, k, v, positions, spec: LayerSpec, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
+def layer_slots(cfg: ModelConfig, *, long_context: bool = False
+                ) -> List[Tuple[int, LayerSpec, int]]:
+    """``(key, spec, n)`` of every stacked layer slot of
+    :func:`layer_groups`, in key order: layer ``key``'s params and cache
+    leaves hold ``n`` layers."""
+    return [(first + i, spec, n)
+            for first, specs, n in layer_groups(cfg,
+                                                long_context=long_context)
+            for i, spec in enumerate(specs)]
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device: DeviceLike = None, *, ax: Optional[AxisInfo] = None,
                long_context: bool = False, media_tokens: int = 0):
@@ -646,12 +719,11 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     cross layer; the KV heads replicated to the mesh's model axis.
     ``device="meta"`` gives shapes and dtypes without allocating."""
     dev = resolve_device(device)
-    specs, n_blocks = block_layout(cfg, long_context=long_context)
     Kp, hd = cfg.replicated_kv_heads(mp_size(ax)), cfg.head_dim
     dtype = torch_dtype(cfg.dtype)
     kv_dtype = torch.int8 if cfg.kv_quant else dtype
     cache = {}
-    for i, spec in enumerate(specs):
+    for i, spec, n_blocks in layer_slots(cfg, long_context=long_context):
         W = min(spec.window, cache_len) if spec.window else cache_len
         cache[f"k{i}"] = torch.zeros((n_blocks, batch, W, Kp, hd),
                                      dtype=kv_dtype, device=dev)
@@ -677,10 +749,9 @@ def cache_pspecs(cfg: ModelConfig, ax: AxisInfo, *,
                  long_context: bool = False) -> Dict[str, P]:
     """Partition specs matching :func:`init_cache`: batch over data,
     KV heads over model."""
-    specs, _ = block_layout(cfg, long_context=long_context)
     out = {}
     dp, mp = ax.batch, ax.model
-    for i, spec in enumerate(specs):
+    for i, spec, _ in layer_slots(cfg, long_context=long_context):
         out[f"k{i}"] = P(None, dp, None, mp, None)
         out[f"v{i}"] = P(None, dp, None, mp, None)
         out[f"pos{i}"] = P(None, dp, None)
@@ -709,7 +780,7 @@ def decode_step(params, tokens, pos, cache, cfg: ModelConfig, *,
     step writes, are passed on as they are.  Under a mesh the cache
     leaves are DTensors placed by :func:`cache_pspecs`, and each rank
     writes its own rows and heads."""
-    specs, n_blocks = block_layout(cfg, long_context=long_context)
+    groups = layer_groups(cfg, long_context=long_context)
     new_cache = {k: v if k.startswith(_READ_ONLY) else v.clone()
                  for k, v in cache.items()}
     dp = dp_axes(ax)
@@ -718,10 +789,10 @@ def decode_step(params, tokens, pos, cache, cfg: ModelConfig, *,
     x = layers.embed_lookup(table, tokens, scale_by_dim=cfg.embedding_scale)
     x = shard(ax, x, dp, None, None)
     delta = None        # the held-back residual add of the fused glue
-    for j in range(n_blocks):
-        blk = gather_fsdp(ax, layers.layer_slice(params["blocks"], j))
+    for first, specs, j, blk in _block_slices(params["blocks"], groups):
+        blk = gather_fsdp(ax, blk)
         x = shard(ax, x, dp, None, None)
-        for i, spec in enumerate(specs):
+        for i, spec in enumerate(specs, first):
             lp = blk[str(i)]
             x, h = _norm_of(x, delta, lp["ln1"], cfg, fused)
             scales = ((new_cache[f"ks{i}"][j], new_cache[f"vs{i}"][j])
@@ -746,6 +817,6 @@ def decode_step(params, tokens, pos, cache, cfg: ModelConfig, *,
                                       fused)
             x, delta = _residual_add(x, ffn_out, fused)
     _, x = _norm_of(x, delta, params["final_norm"], cfg, fused)
-    logits = layers.unembed(rows(ax, x), table,
+    logits = layers.unembed(rows(ax, x), _head(params, table, cfg, ax),
                             softcap=cfg.final_logit_softcap)
     return logits, new_cache

@@ -410,6 +410,18 @@ class _Scope:
             self._span.attrs.update(attrs)
 
 
+def prepare_profiler() -> None:
+    """Make now the imports that starting a ``torch.profiler.profile``
+    makes: its ``prepare_trace`` asks ``hasattr(torch, "_inductor")``,
+    which imports ``torch._inductor`` lazily, and with it
+    ``torch._dynamo`` and torch.distributed's FSDP and DTensor.  Made
+    while requests are served, that import competes with the serving
+    threads for the interpreter: on an H100 host it held a profile's
+    start back 10 to 24 s, so a device trace taken on demand began that
+    late."""
+    import torch._inductor.config  # noqa: F401
+
+
 def scope(kind: str, op: Optional[str] = None, *, node: Optional[str] = None,
           span: bool = True, **attrs):
     """A context manager timing one piece of a dispatch's work (see

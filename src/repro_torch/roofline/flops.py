@@ -27,7 +27,7 @@ import math
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import InputShape
-from repro_torch.models.transformer import LayerSpec, block_layout
+from repro_torch.models.transformer import LayerSpec, layer_slots
 from repro_torch.models import rglru as rglru_lib
 
 
@@ -67,8 +67,8 @@ def _attn_layer_flops(cfg: ModelConfig, T: float, S_ctx: float, mp: int,
     return proj + scores
 
 
-def _mlp_flops(cfg: ModelConfig, T: float) -> float:
-    return 2 * T * cfg.d_model * cfg.d_ff * cfg.mlp_mats
+def _mlp_flops(cfg: ModelConfig, T: float, F: int = 0) -> float:
+    return 2 * T * cfg.d_model * (F or cfg.d_ff) * cfg.mlp_mats
 
 
 def _moe_flops(cfg: ModelConfig, T: float, chips: int, mp: int,
@@ -103,13 +103,13 @@ def _rglru_rec_flops(cfg: ModelConfig, T: float) -> float:
             + 12 * T * R)
 
 
-def _block_layout(cfg: ModelConfig, long_context: bool):
-    """``block_layout``, and for the audio family the single plain layer
+def _layer_slots(cfg: ModelConfig, long_context: bool):
+    """``layer_slots``, and for the audio family the single plain layer
     per block that the reference's layout gives any family it does not
-    name (the port's ``block_layout`` refuses non-transformer families)."""
+    name (the port's ``layer_slots`` refuses non-transformer families)."""
     if cfg.family == "audio":
-        return [LayerSpec()], cfg.num_layers
-    return block_layout(cfg, long_context=long_context)
+        return [(0, LayerSpec(), cfg.num_layers)]
+    return layer_slots(cfg, long_context=long_context)
 
 
 def estimate(cfg: ModelConfig, shape: InputShape, *, chips: int = 256,
@@ -125,14 +125,14 @@ def estimate(cfg: ModelConfig, shape: InputShape, *, chips: int = 256,
     fwd = 0.0
 
     if cfg.family in ("dense", "moe", "vlm"):
-        specs, n_blocks = block_layout(cfg, long_context=long_context)
-        for spec in specs:
+        for _, spec, n_blocks in layer_slots(cfg,
+                                             long_context=long_context):
             fwd += n_blocks * _attn_layer_flops(cfg, T, S_ctx, mp,
                                                 spec.window, decode)
             if spec.is_moe:
                 fwd += n_blocks * _moe_flops(cfg, T, chips, mp, decode)
                 if spec.aux_mlp:
-                    fwd += n_blocks * _mlp_flops(cfg, T)
+                    fwd += n_blocks * _mlp_flops(cfg, T, cfg.aux_ff)
             else:
                 fwd += n_blocks * _mlp_flops(cfg, T)
             if spec.has_cross:
@@ -201,8 +201,7 @@ def estimate(cfg: ModelConfig, shape: InputShape, *, chips: int = 256,
             est.cache_bytes = n_attn * B * W * Kp * hd * 2 * bpe
             est.cache_bytes += (cfg.num_layers - n_attn) * B * cfg.rnn_dim * 4
         else:
-            specs, n_blocks = _block_layout(cfg, long_context)
-            for spec in specs:
+            for _, spec, n_blocks in _layer_slots(cfg, long_context):
                 W = min(spec.window or S, S)
                 est.cache_bytes += int(n_blocks * B * W * Kp * hd * 2
                                        * kv_bpe)

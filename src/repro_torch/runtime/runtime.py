@@ -41,7 +41,7 @@ from repro_torch.obs import keys as okeys
 from repro_torch.obs.clock import now as _mono
 from repro_torch.obs.metrics import (Histogram, HistogramSnapshot,
                                      WindowedCounter)
-from repro_torch.obs.trace import Trace, Tracer
+from repro_torch.obs.trace import Trace, Tracer, prepare_profiler
 from repro_torch.runtime.dag import RuntimeDag, RuntimeNode
 from repro_torch.runtime.executor import ExecutorPool, WorkItem
 from repro_torch.runtime.kvs import KVS
@@ -147,6 +147,11 @@ class Runtime:
         # recording, or a higher sample_rate to also keep healthy traces.
         self.tracer = tracer if tracer is not None else Tracer(
             enabled=True, sample_rate=0.0)
+        # a caller's own tracer on the card: a device trace may be taken
+        # while it serves, so the profiler's imports are made here
+        if tracer is not None and tracer.enabled and \
+                self.device.type == "cuda":
+            prepare_profiler()
         self.kvs = KVS(self.net)
         injector = FaultInjector(fault_plan) if fault_plan is not None \
             else None

@@ -11,6 +11,9 @@ ranges nested in the executor's ``exec@`` range; with neither consumer
 on, a scope enters no profiler range and allocates nothing."""
 import copy
 import dataclasses
+import os
+import subprocess
+import sys
 import time
 
 import pytest
@@ -25,6 +28,7 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.obs import Tracer, attribute  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.runtime import NetModel, Runtime  # noqa: E402
+from repro_torch.runtime import runtime as rt_mod  # noqa: E402
 
 STEPS = 3
 OPS = ["yi_9b_prefill"] + ["yi_9b_decode"] * STEPS
@@ -183,3 +187,54 @@ def test_scopes_off_allocate_nothing(stages, no_range, monkeypatch, path,
     assert len(outs) == n and tracer.kept() == []
     assert obs_trace.scope("step", "x", index=0) is obs_trace._NO_SCOPE
     assert not obs_trace.scope("upload", rows=1)
+
+
+#: run in a fresh interpreter: the modules a profiler's start imports
+#: after ``prepare_profiler``, one name a line
+_PROFILER_IMPORTS = """
+import sys
+import torch
+from repro_torch.obs import trace
+assert "torch._inductor" not in sys.modules
+trace.prepare_profiler()
+before = set(sys.modules)
+with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU]):
+    pass
+print("\\n".join(sorted(set(sys.modules) - before)))
+"""
+
+
+def test_prepare_profiler_leaves_the_profiler_nothing_to_import():
+    """After ``prepare_profiler`` a profiler's start imports none of
+    torch's compiler or distributed packages (the import that stalled a
+    profile started while serving)."""
+    env = dict(os.environ)
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", _PROFILER_IMPORTS],
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    late = [m for m in out.stdout.split()
+            if m.startswith(("torch._inductor", "torch._dynamo",
+                             "torch.distributed"))]
+    assert late == []
+
+
+@pytest.mark.parametrize("device,own_tracer,calls",
+                         [("cuda", True, 1), ("cuda", False, 0),
+                          ("cpu", True, 0)],
+                         ids=["card-tracer", "card-default", "cpu-tracer"])
+def test_runtime_prepares_the_profiler_for_its_own_tracer_on_a_card(
+        monkeypatch, device, own_tracer, calls):
+    seen = []
+    monkeypatch.setattr(rt_mod, "prepare_profiler",
+                        lambda: seen.append(True))
+    monkeypatch.setattr(rt_mod, "resolve_device",
+                        lambda d: torch.device(device))
+    rt = Runtime(n_cpu=1, net=NetModel(scale=0.0), device=device,
+                 tracer=Tracer(sample_rate=1.0) if own_tracer else None)
+    rt.stop()
+    assert len(seen) == calls
