@@ -20,7 +20,12 @@ ignored):
    line), and again at deepseek-moe-16b's (D 2048; decode at B 1 and 8
    over a 4096-slot ring, prefill at [1, 1024] and [8, 1024];
    ``gated_act`` at the dense layer's 10944 and the shared experts' 2816;
-   launches from phase 9's run); then full-width yi-9b's prefill and
+   launches from phase 9's run); the MoE layer's kernels (``moe_route``,
+   ``moe_permute``, ``moe_combine``) against their plain versions at
+   deepseek-moe-16b's shapes (D 2048, E 64, top 6; T 1, 8, 1024 and 8192) in
+   f32 and, timed, in bf16, one row each with its device time, bound and
+   the plain version's time (a ``moe_kernels`` JSON line, launches from
+   phase 9's run; ``phase_moe_kernels``); then full-width yi-9b's prefill and
    decode step at B 1 and 8 with the glue fused and eager: launch calls (profiler), host and
    device time, and the logits of the two held together.  Then each attention
    and recurrence kernel against its plain PyTorch version at its path's
@@ -165,7 +170,15 @@ ignored):
    tokens at full depth.  deepseek-moe-16b at full width and depth (28
    layers: a dense one, then 27 of 64 routed experts, top 6, and the
    shared experts) through the same checks, f32 tokens at 2 layers.
-   Then its reference check (``phase_deepseek_reference``): 4 prompts of
+   On every MoE path the MoE kernels' launches are one each a MoE call
+   and every call takes them (``expected_moe``, ``.fused`` == ``.calls``),
+   ``gated_act`` counts the experts' activations, and one bf16 MoE call
+   is exactly ``moe_call_launches`` launch calls (profiler).  Then, on
+   full-width deepseek-moe-16b, a prefill of 1024 tokens and a decode
+   step at B 1 and 8 with the MoE kernels and with the MoE eager
+   (``_moe_step``: launch calls, host, device and event ms; a
+   ``moe_step:`` JSON line), and its reference check
+   (``phase_deepseek_reference``): 4 prompts of
    1024 tokens, a prefill and 16 greedy decode steps through a 4096-slot
    cache against the plain float32 reference at every served position,
    each over a tolerance only where a route lies within the bf16 rounding
@@ -229,8 +242,8 @@ ignored):
    ``train_4k`` at 16x16 among them).
 12. The last line: ``{"ok": true, "device": {...}}``; before it a
    ``kernels`` JSON line (with gemma2-9b's, arctic-480b's, glm4-9b's,
-   granite-34b's and deepseek-moe-16b's attention rows), the ``glue`` line and the nvidia-smi
-   line.  Each phase
+   granite-34b's and deepseek-moe-16b's attention rows), the ``glue`` and
+   ``moe_kernels`` lines and the nvidia-smi line.  Each phase
    prints its seconds.
 
 Exits non-zero with no result when CUDA is unavailable or the port's
@@ -256,6 +269,10 @@ KERNELS = ("decode_attention", "flash_attention", "wkv6", "rglru_scan")
 #: the decoder layer's fused glue (``kernels/glue.py``): their counters are
 #: set to 0 with the kernels' and read where a path's glue is checked
 GLUE = ("add_rmsnorm", "rope", "rope_cache_write", "gated_act")
+#: the MoE layer's kernels (``kernels/moe.py``): their counters, and the
+#: served MoE layer's own (``.calls``, ``.pairs``, ``.fused``), are set to
+#: 0 with the kernels' and read where a MoE path is checked
+MOE_KERNELS = ("moe_route", "moe_permute", "moe_combine")
 #: phase 11's eval step: yi-9b's flash at [TRAIN_B, 32, TRAIN_S, 128]
 TRAIN_EVAL_FLASH = "flash_attention[yi-9b train eval]"
 #: the kernels JSON line's rows: each kernel at its served path's shapes,
@@ -267,6 +284,9 @@ TRAIN_EVAL_FLASH = "flash_attention[yi-9b train eval]"
 DS_ARCH = "deepseek-moe-16b"
 DS_SEQ, DS_STEPS, DS_CACHE = 1024, 16, 4096
 DS_FILLED = (1040, 1025, 1032, 1036, 1028, 1039, 1026, 1033)
+#: the MoE kernels' rows: a decode step at one row and at a full bucket
+#: of 8, a 1024-token prefill and a bucket of 8 such prefills
+DS_MOE_TOKENS = (1, 8, DS_SEQ, 8 * DS_SEQ)
 #: the reference phase: prompts, the reference's blocks of prompts, and
 #: the served tokens' gap limit (the benchmark cell's ``gap_limit``)
 DS_PROMPTS, DS_BLOCK = 4, 2
@@ -948,16 +968,17 @@ def _bf16_ulps(torch, got, want):
     return int((key(got) - key(want)).abs().max())
 
 
-def _glue_row(torch, flush, name, shape, fn, plain, nbytes, err):
+def _glue_row(torch, flush, name, shape, fn, plain, nbytes, err,
+              flops=0, replaces="no TPU kernel (XLA fuses this glue in the "
+                                "reference)"):
     """A glue kernel's row: its error against the plain version, both
     timings of :func:`spans`, the plain version's (the eager composition
     it replaces, on the card: event time and host enqueue time) and the
-    least time by bytes."""
+    least time by bytes (or by ``flops`` on the float32 units)."""
     row = {"name": name, "route": "cuda", "shape": shape,
            "source": f"src/repro_torch/csrc/{name.split('[')[0]}.cu",
-           "replaces": "no TPU kernel (XLA fuses this glue in the "
-                       "reference)",
-           **err, **_bound(nbytes, 0, "bfloat16"),
+           "replaces": replaces,
+           **err, **_bound(nbytes, flops, "float32"),
            **spans(torch, fn, None, flush),
            "plain_ms": time_ms(torch, plain, flush=flush),
            "plain_device_ms": time_ms(torch, plain, flush=flush, spin=True),
@@ -1189,6 +1210,127 @@ def phase_glue(torch, dev, smi):
     return {"glue": list(rows.values()), "device": smi}
 
 
+def phase_moe_kernels(torch, dev, smi):
+    """Phase 3's MoE part: ``moe_route``, ``moe_permute`` and
+    ``moe_combine`` against their plain versions (the eager composition
+    they replace) at deepseek-moe-16b's shapes (D 2048, E 64, top 6, not
+    renormalised; T of ``DS_MOE_TOKENS``), in f32 and, timed, in bf16:
+    the experts alike but where the float64 router scores the two
+    choices within rel 1e-5 (a tie either f32 version may break); the
+    weights as close to the float64 router's as the plain version's
+    (within twice its gap, or 2e-6: its f32 product and softmax round
+    too); the aux loss within rel ``MOE_AUX_REL``; on the kernel's own
+    routes ``ends``, ``pos`` and the gathered rows equal, and the combine
+    within one bf16 step (8 f32 steps) at each row's largest magnitude.
+    Returns the ``moe_kernels`` JSON line's object (each row's
+    ``launches`` filled in from phase 9's run)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe as kmoe
+
+    cfg = get_config(DS_ARCH)
+    D, E, k = cfg.d_model, cfg.num_experts, cfg.num_experts_per_tok
+    renorm = cfg.norm_topk_prob
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    router = torch.randn((D, E), generator=g, device=dev) / math.sqrt(D)
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    flush = scratch.zero_
+    replaces = ("no TPU kernel (the reference routes, sorts and combines "
+                "with XLA ops)")
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        el = torch.empty((), dtype=dtype).element_size()
+        for T in DS_MOE_TOKENS:
+            xf = torch.randn((T, D), generator=g, device=dev).to(dtype)
+            r = kmoe.moe_route(xf, router, k, renorm)
+            rp = kmoe.moe_route_plain(xf, router, k, renorm)
+            # the placement and the combine on the kernel's own routes
+            order, ends = kmoe.sort_pairs_plain(r.top_i, E)
+            mine = r._replace(order=order, work=None)
+            rows_k, pos = kmoe.moe_permute(xf, r)
+            rows_p, pos_p = kmoe.moe_permute_plain(xf, mine)
+            out_rows = torch.randn(rows_k.shape, generator=g,
+                                   device=dev).to(dtype)
+            y = kmoe.moe_combine(out_rows, r, pos)
+            y_p = kmoe.moe_combine_plain(out_rows, mine, pos_p)
+            torch.cuda.synchronize()
+            # each version's weights against the float64 router's; where
+            # the experts differ, how close the float64 router scores them
+            probs = torch.softmax(xf.double() @ router.double(), dim=-1)
+
+            def gap(top_w, top_i):
+                exact = probs.gather(1, top_i)
+                if renorm:
+                    exact = exact / exact.sum(-1, keepdim=True)
+                return float(((top_w.double() - exact).abs() / exact).max())
+
+            w_err, w_err_plain = gap(r.top_w, r.top_i), gap(rp.top_w,
+                                                             rp.top_i)
+            differ = (r.top_i != rp.top_i).any(-1)
+            pk = probs[differ].gather(1, r.top_i[differ])
+            pp = probs[differ].gather(1, rp.top_i[differ])
+            tie = float(((pk - pp).abs() / pp).max()) if differ.any() \
+                else 0.0
+            aux_err = rel_err(r.aux, rp.aux)
+            check(tie <= 1e-5 and torch.equal(r.ends, ends)
+                  and w_err <= max(2e-6, 2 * w_err_plain)
+                  and aux_err <= MOE_AUX_REL,
+                  f"moe_route {dtype} T {T}: {int(differ.sum())} tokens' "
+                  f"experts differ from the plain version's, where the "
+                  f"float64 router scores them within rel {tie} <= 1e-5; "
+                  f"ends equal the kernel routes' counts; weights within "
+                  f"rel {w_err} of the float64 router's <= 2e-6 or twice "
+                  f"the plain version's {w_err_plain}; aux rel {aux_err} "
+                  f"<= {MOE_AUX_REL}")
+            check(torch.equal(pos, pos_p) and torch.equal(rows_k, rows_p),
+                  f"moe_permute {dtype} T {T}: places and rows equal")
+            steps = _row_steps(torch, y, y_p, dtype)
+            check(steps <= (1 if dtype == torch.bfloat16 else 8),
+                  f"moe_combine {dtype} T {T}: {steps} steps of the dtype "
+                  f"at each row's largest magnitude from the plain version "
+                  f"on the same gates (<= 1 in bf16, 8 in f32)")
+            if dtype == torch.float32:
+                continue
+            c_err = {"max_steps": steps}
+            where = f"{DS_ARCH} T {T}"
+            rows[f"moe_route[{where}]"] = _glue_row(
+                torch, flush, f"moe_route[{where}]", f"[{T}, {D}] x [{D}, "
+                f"{E}], top {k}",
+                lambda: kmoe.moe_route(xf, router, k, renorm),
+                lambda: kmoe.moe_route_plain(xf, router, k, renorm),
+                T * D * el + D * E * 4 + T * k * 12,
+                {"weights_rel_err": w_err, "plain_weights_rel_err":
+                 w_err_plain, "aux_rel_err": aux_err,
+                 "tokens_at_ties": int(differ.sum())},
+                flops=2 * T * D * E, replaces=replaces)
+            rows[f"moe_permute[{where}]"] = _glue_row(
+                torch, flush, f"moe_permute[{where}]", f"[{T}, {D}] to "
+                f"[{T * k}, {D}]", lambda: kmoe.moe_permute(xf, r),
+                lambda: kmoe.moe_permute_plain(xf, rp),
+                (T + T * k) * D * el + T * k * 12, {"equal": True},
+                replaces=replaces)
+            rows[f"moe_combine[{where}]"] = _glue_row(
+                torch, flush, f"moe_combine[{where}]", f"[{T * k}, {D}] to "
+                f"[{T}, {D}]", lambda: kmoe.moe_combine(out_rows, r, pos),
+                lambda: kmoe.moe_combine_plain(out_rows, mine, pos_p),
+                (T * k + T) * D * el + T * k * 8, c_err, replaces=replaces)
+            for row in list(rows.values())[-3:]:
+                row["model"] = DS_ARCH
+    del scratch
+    _release(torch)
+    return {"moe_kernels": list(rows.values()), "device": smi}
+
+
+def _row_steps(torch, got, want, dtype):
+    """The largest gap between two [T, D] tensors in steps of ``dtype``
+    (its last place), each row's step taken at its largest |want|: a sum
+    of k terms taken in another f32 order moves a small element by as
+    much as a large one."""
+    scale = want.float().abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    bits = 7 if dtype == torch.bfloat16 else 23
+    step = torch.exp2(torch.floor(torch.log2(scale)) - bits)
+    return float(((got.float() - want.float()).abs() / step).max())
+
+
 def phase_glue_step(torch, dev, smi):
     """Full-width bf16 yi-9b: one prefill of [1, SEQ] tokens and a decode
     step at B 1 and B 8, each with the layers' glue fused (the path) and
@@ -1330,23 +1472,52 @@ def expected_glue(cfg, prefills, steps, ax=None):
     four with post norms, and the final one) and ``gated_act`` at every
     gated MLP (a layer's own, a MoE layer's ``aux_mlp``), a prefill one
     ``rope`` a layer and a decode step one ``rope_cache_write``; the other
-    families, and a transformer under a mesh, run none."""
+    families, and a transformer under a mesh, run none.  Besides, a gated
+    MoE layer on the MoE kernels' path (``expected_moe``) runs
+    ``gated_act`` once a call, between its grouped products."""
     from repro_torch.models import transformer
 
     want = dict.fromkeys(GLUE, 0)
-    if (cfg.family not in ("dense", "moe", "vlm")
-            or not transformer.fused_glue(cfg, ax)):
+    if cfg.family not in ("dense", "moe", "vlm"):
         return want
     slots = transformer.layer_slots(cfg)
-    L = sum(n for _, _, n in slots)
     calls = prefills * (1 + steps)
+    if cfg.gated_mlp:
+        want["gated_act"] = expected_moe(cfg, prefills, steps,
+                                         ax)["moe_route"]
+    if not transformer.fused_glue(cfg, ax):
+        return want
+    L = sum(n for _, _, n in slots)
     want["add_rmsnorm"] = ((4 if cfg.post_norms else 2) * L + 1) * calls
     if cfg.gated_mlp:
-        want["gated_act"] = sum(n for _, sp, n in slots
-                                if not sp.is_moe or sp.aux_mlp) * calls
+        want["gated_act"] += sum(n for _, sp, n in slots
+                                 if not sp.is_moe or sp.aux_mlp) * calls
     want["rope"] = L * prefills
     want["rope_cache_write"] = L * steps * prefills
     return want
+
+
+def expected_moe(cfg, prefills, steps, ax=None):
+    """Launches of each MoE kernel over ``prefills`` dispatches of the
+    cascade (a prefill and ``steps`` decode steps each): every MoE layer
+    call runs each once where ``moe.fused_moe`` holds (``use_kernels``
+    and no mesh), and none elsewhere."""
+    from repro_torch.models import moe, transformer
+
+    want = dict.fromkeys(MOE_KERNELS, 0)
+    if (cfg.family not in ("dense", "moe", "vlm") or not cfg.num_experts
+            or not moe.fused_moe(cfg) or ax is not None):
+        return want
+    n_moe = sum(n for _, sp, n in transformer.layer_slots(cfg) if sp.is_moe)
+    return dict.fromkeys(MOE_KERNELS, n_moe * prefills * (1 + steps))
+
+
+def moe_call_launches(cfg):
+    """The launch calls of one MoE layer call on the kernels' path:
+    ``moe_route``'s two kernels, ``moe_permute``, each grouped product
+    with its data-preparation launch, the activation (``gated_act``, or
+    the eager one of an ungated MLP) and ``moe_combine``."""
+    return 2 + 1 + 2 * (3 if cfg.gated_mlp else 2) + 1 + 1
 
 
 def phase_path(torch, dev, arch, f32_layers, logits_layers, keep=False,
@@ -1401,6 +1572,15 @@ def phase_path(torch, dev, arch, f32_layers, logits_layers, keep=False,
     print(f"  fused glue launches {glue_n}", flush=True)
     check(glue_n == want, f"fused glue launches {glue_n} == {want} for "
           f"{runs} prefill dispatches x {STEPS} decode steps")
+    moe_n = _moe_launches()
+    want = expected_moe(cfg, runs, STEPS)
+    print(f"  MoE kernel launches {moe_n}", flush=True)
+    check({n: moe_n[n] for n in MOE_KERNELS} == want
+          and moe_n["fused"] == (moe_n["calls"] if want["moe_route"] else 0),
+          f"MoE kernel launches {moe_n} == {want} for {runs} prefill "
+          f"dispatches x {STEPS} decode steps, every MoE call (or none) on "
+          f"the kernels' path")
+    PATH_MOE_LAUNCHES[cfg.name] = moe_n
     PATH_DISPATCHES[cfg.name] = runs
     if cfg.family == "dense":
         specs, blocks = transformer.block_layout(cfg)
@@ -1709,13 +1889,30 @@ def _glue_launches():
     return {name: getattr(glue, name).launches for name in GLUE}
 
 
+def _moe_launches():
+    """The MoE kernels' launches and the served MoE layer's calls, and of
+    them those on the kernel path (``fused``)."""
+    from repro_torch.kernels import moe as kmoe
+    from repro_torch.models import moe
+
+    out = {name: getattr(kmoe, name).launches for name in MOE_KERNELS}
+    out.update(calls=moe.moe_apply_grouped.calls,
+               fused=moe.moe_apply_grouped.fused)
+    return out
+
+
 def _zero_launches():
-    from repro_torch.kernels import glue, ops as kops
+    from repro_torch.kernels import glue, moe as kmoe, ops as kops
+    from repro_torch.models import moe
 
     for name in KERNELS:
         getattr(kops, name).launches = 0
     for name in GLUE:
         getattr(glue, name).launches = 0
+    for name in MOE_KERNELS:
+        getattr(kmoe, name).launches = 0
+    moe.moe_apply_grouped.calls = moe.moe_apply_grouped.pairs = 0
+    moe.moe_apply_grouped.fused = 0
     kops.flash_attention.windowed_launches = 0
     kops.flash_attention.launches_by_heads = {}
 
@@ -3289,6 +3486,9 @@ FAMILIES2 = (("arctic-480b", 2, 1), ("llama4-maverick-400b-a17b", 2, 2),
              ("whisper-medium", None, 24), (DS_ARCH, None, 2))
 #: the served MoE layer against the masked combine in f32
 MOE_F32_REL = 1e-5
+#: the MoE kernels' load-balance loss against the eager router's: the
+#: same sums of probabilities and products, taken in other orders
+MOE_AUX_REL = 1e-5
 
 
 def _routes(torch, fn):
@@ -3392,9 +3592,12 @@ def moe_layer_check(torch, dev, cfg, params, bar):
     against the plain ``moe_apply_reference`` on the same seeded hidden
     states (the first MoE layer's params of ``params``), at the prefill's
     ``PROMPTS * SEQ`` tokens and a decode step's ``PROMPTS``: rel err
-    within ``bar``, the aux loss equal; prints each one's time (CUDA
-    events) and the bytes of expert weights each reads (the served path
-    only its routed experts', the masked combine all E)."""
+    within ``bar``, the aux loss equal (within ``MOE_AUX_REL`` where the
+    served layer takes the MoE kernels, which sum it in other orders);
+    on the kernels' path, one call's launch calls exactly
+    ``moe_call_launches``; prints each one's time (CUDA events) and the
+    bytes of expert weights each reads (the served path only its routed
+    experts', the masked combine all E)."""
     from repro_torch.interop import torch_dtype
     from repro_torch.models import moe, transformer
 
@@ -3414,11 +3617,32 @@ def moe_layer_check(torch, dev, cfg, params, bar):
         torch.cuda.synchronize()
         err = rel_err(got, want)
         T = PROMPTS * S
-        check(bool(torch.isfinite(got).all()) and err <= bar
-              and torch.equal(aux, aux_ref),
+        fused = moe.fused_moe(cfg)
+        aux_ok = (rel_err(aux, aux_ref) <= MOE_AUX_REL if fused
+                  else torch.equal(aux, aux_ref))
+        check(bool(torch.isfinite(got).all()) and err <= bar and aux_ok,
               f"{cfg.name} {cfg.dtype} MoE layer, T {T}: served moe_apply "
               f"vs moe_apply_reference rel err {err} <= {bar}, aux "
-              f"{float(aux)} == {float(aux_ref)}")
+              f"{float(aux)} against {float(aux_ref)}")
+        if fused:
+            # the eager composition on the same input, for its own gap
+            takes = moe.fused_moe
+            moe.fused_moe = lambda *args, **kwargs: False
+            try:
+                eager_err = rel_err(moe.moe_apply(x, lp, cfg)[0], want)
+            finally:
+                moe.fused_moe = takes
+            n, _ = _profile_call(torch, lambda: moe.moe_apply(x, lp, cfg))
+            # in bf16 each grouped product is one CUTLASS kernel and its
+            # data launch; in f32 torch runs it expert by expert
+            if cfg.dtype == "bfloat16":
+                check(n == moe_call_launches(cfg),
+                      f"{cfg.name} {cfg.dtype} MoE layer, T {T}: {n} launch "
+                      f"calls a call on the kernels' path == "
+                      f"{moe_call_launches(cfg)}")
+            print(f"  MoE layer {label}: {n} launch calls a call; the eager "
+                  f"composition's rel err against moe_apply_reference on "
+                  f"the same input {eager_err}", flush=True)
         used = int(torch.unique(moe._router(
             x.reshape(-1, cfg.d_model), lp["router"],
             cfg.num_experts_per_tok)[1]).numel())
@@ -3506,13 +3730,71 @@ def _ds_reference(torch, params, cfg, seq, positions, quant=None):
     return torch.cat(out), info
 
 
+def _moe_step(torch, dev, model, params, cfg, smi):
+    """Full-width deepseek-moe-16b: a prefill of [B, ``DS_SEQ``] tokens
+    and a decode step after it at B 1 and 8, each with the MoE layers on
+    their kernels (the path) and eager (``moe.fused_moe`` patched to
+    False, everything else alike): launch calls and the device's busy ms
+    per call (profiler), the host's enqueue ms and the event ms per call,
+    and the logits' rel gap between the two (printed; the reference check
+    after holds the path to the float32 reference)."""
+    from repro_torch.models import moe
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    takes = moe.fused_moe
+    out = {}
+    for B in (1, 8):
+        toks = torch.randint(0, cfg.vocab_size, (B, DS_SEQ), generator=g,
+                             device=dev, dtype=torch.int32)
+        logits, cache = model.prefill(params, {"tokens": toks}, DS_CACHE)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        pos = torch.full((B,), DS_SEQ, dtype=torch.int32, device=dev)
+        del logits
+        calls = {"prefill": lambda: model.prefill(
+                     params, {"tokens": toks}, DS_CACHE)[0][:, -1],
+                 "decode": lambda: model.decode_step(params, tok, pos,
+                                                     cache)[0][:, -1]}
+        for what, fn in calls.items():
+            res = {}
+            for mode in ("eager MoE", "MoE kernels"):
+                moe.fused_moe = (takes if mode == "MoE kernels"
+                                 else lambda *args, **kwargs: False)
+                try:
+                    first = fn().float()
+                    torch.cuda.synchronize()
+                    launches, busy = _profile_call(torch, fn)
+                    iters = 3 if what == "prefill" else 10
+                    host = host_ms(torch, fn, iters=iters)
+                    ev_ms = time_ms(torch, fn, iters=iters, warmup=1)
+                finally:
+                    moe.fused_moe = takes
+                res[mode] = {"launch_calls": launches, "host_ms": host,
+                             "device_busy_ms": busy, "ms": ev_ms,
+                             "logits": first}
+            gap = rel_err(res["MoE kernels"]["logits"],
+                          res["eager MoE"]["logits"])
+            for mode, r in res.items():
+                r.pop("logits")
+                print(f"  {DS_ARCH} {what} B {B}, {mode}: "
+                      f"{r['launch_calls']} launch calls, host "
+                      f"{r['host_ms']:.3f} ms, device busy "
+                      f"{r['device_busy_ms']:.3f} ms, events "
+                      f"{r['ms']:.3f} ms", flush=True)
+            out[f"{what} B {B}"] = {**res, "logit_rel_gap": gap}
+        del cache
+    print("moe_step: " + json.dumps({"device": smi, "calls": out}),
+          flush=True)
+
+
 def phase_deepseek_reference(torch, dev, smi):
     """deepseek-moe-16b at full width and depth against its plain float32
     reference (``repro_torch.reference.deepseek_moe``) at its cell's
     shapes: ``DS_PROMPTS`` random prompts of ``DS_SEQ`` tokens, a prefill
     and ``DS_STEPS`` greedy decode steps through a ``DS_CACHE``-slot cache
     (bf16, kernels on), then the reference over each prompt and its served
-    tokens in float32 and on float8 operands (the control).  At each
+    tokens in float32 and on float8 operands (the control).  First, on
+    the same model, the MoE kernels against the eager MoE in a prefill and
+    a decode step (``_moe_step``).  At each
     served position: ``rel``, the logits' max |served - reference| over
     max |reference|, held to BF16_REL (the reference package's bar for
     bfloat16); ``gap``, the reference's best logit less the served
@@ -3531,6 +3813,7 @@ def phase_deepseek_reference(torch, dev, smi):
     cfg = dataclasses.replace(get_config(DS_ARCH), use_kernels=True)
     model = build_model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    _moe_step(torch, dev, model, params, cfg, smi)
     N, S, steps, k = DS_PROMPTS, DS_SEQ, DS_STEPS, cfg.num_experts_per_tok
     prompts = torch.randint(0, cfg.vocab_size, (N, S), dtype=torch.int32,
                             generator=torch.Generator().manual_seed(
@@ -4439,6 +4722,8 @@ def _negate_lam(tree):
 PATH_TOKENS = {}
 #: prefill dispatches of each bf16 path's run (phases 4 and 9)
 PATH_DISPATCHES = {}
+#: each MoE path's MoE kernel launches and calls (phase 9)
+PATH_MOE_LAUNCHES = {}
 #: phase 12: the dry-run combinations, each traced in its own process on
 #: the fake group while the card serves: (arch, shape, multi-pod)
 MESH_DRYRUNS = (("yi-9b", "train_4k", False),
@@ -4518,13 +4803,14 @@ def _mesh_serve(torch, dev, cfg, ax, mode, smi):
     equal (the peak within 1%).  Under the mesh the layers keep the eager
     glue (``transformer.fused_glue`` is false there), whose norms sum in
     another order than ``add_rmsnorm``: the run without a mesh that the
-    mesh run is held to keeps it too, and a third run, without a mesh and
-    with the glue fused as served, gives the path's own tokens and glue
-    launches.
+    mesh run is held to keeps it too (and the MoE layers' eager
+    composition, ``moe.fused_moe`` false as under the mesh), and a
+    third run, without a mesh and with the glue and the MoE kernels as
+    served, gives the path's own tokens and glue launches.
     Returns (the served path's tokens, the mesh run's launches, params)."""
     from repro_torch.launch import sharding as sh
 
-    from repro_torch.models import build_model, transformer
+    from repro_torch.models import build_model, moe, transformer
 
     params = build_model(cfg, device=dev).init(
         torch.Generator(device=dev).manual_seed(SEED))
@@ -4534,31 +4820,36 @@ def _mesh_serve(torch, dev, cfg, ax, mode, smi):
     want_glue = expected_glue(cfg, sum(disp), STEPS)
     check(glue_n == want_glue, f"{cfg.name} without a mesh: fused glue "
           f"launches {glue_n} == {want_glue}")
-    fused_glue = transformer.fused_glue
+    fused_glue, fused_moe = transformer.fused_glue, moe.fused_moe
     transformer.fused_glue = lambda cfg, ax: False
+    moe.fused_moe = lambda *args, **kwargs: False
     torch.cuda.reset_peak_memory_stats(dev)
     try:
         _, _, _, want, lats, _, disp, launches = serve(torch, dev, cfg,
                                                        params=params)
     finally:
         transformer.fused_glue = fused_glue
+        moe.fused_moe = fused_moe
     peak0 = torch.cuda.max_memory_allocated(dev) - held
     want_launches = expected_launches(cfg, sum(disp), STEPS)
     check(launches == want_launches
-          and _glue_launches() == dict.fromkeys(GLUE, 0),
-          f"{cfg.name} without a mesh, the glue eager: launches {launches}"
-          f" == {want_launches}, no glue launch ({_glue_launches()})")
+          and _glue_launches() == dict.fromkeys(GLUE, 0)
+          and _moe_launches()["fused"] == 0,
+          f"{cfg.name} without a mesh, the glue and the MoE eager: launches "
+          f"{launches} == {want_launches}, no glue launch "
+          f"({_glue_launches()}), no MoE kernel ({_moe_launches()})")
     dparams = sh.distribute(params, ax.mesh, sh.param_pspecs(
         params, cfg, ax, mode=mode))
     torch.cuda.reset_peak_memory_stats(dev)
     _, _, _, got, lats1, _, disp1, launches1 = serve(
         torch, dev, cfg, params=dparams, ax=ax)
-    glue1 = _glue_launches()
+    glue1, moe1 = _glue_launches(), _moe_launches()
     peak1 = torch.cuda.max_memory_allocated(dev) - held
     want1 = expected_launches(cfg, sum(disp1), STEPS)
-    check(glue1 == dict.fromkeys(GLUE, 0), f"{cfg.name} under a (1, 1) "
-          f"mesh: no fused glue launch ({glue1}): the layers keep the "
-          f"DTensor composition")
+    check(glue1 == dict.fromkeys(GLUE, 0) and moe1["fused"] == 0,
+          f"{cfg.name} under a (1, 1) mesh: no fused glue launch ({glue1}) "
+          f"and no MoE kernel ({moe1}): the layers keep the DTensor "
+          f"composition")
     check(got == want, f"{cfg.name} under a (1, 1) mesh: tokens {got} == "
           f"the run without a mesh, the glue eager, {want}")
     check(launches1 == want1, f"{cfg.name} under a (1, 1) mesh: launches "
@@ -4769,6 +5060,7 @@ def main() -> int:
 
     t0 = _phase("kernels")
     glue_line = phase_glue(torch, dev, smi)
+    moe_line = phase_moe_kernels(torch, dev, smi)
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     kernels = phase_kernels(torch, dev, flush=scratch.zero_)
     del scratch
@@ -4828,6 +5120,11 @@ def main() -> int:
                 if n:
                     kernels[f"{name}[{arch}]"]["launches"] = n
         _glue_row_launches(glue_line, arch, glue_n)
+    for row in moe_line["moe_kernels"]:
+        row["launches"] = PATH_MOE_LAUNCHES[DS_ARCH][row["name"].split("[")[0]]
+        row["launches_per"] = (f"{PATH_DISPATCHES[DS_ARCH]} dispatches of "
+                               f"full-depth {DS_ARCH}'s cascade, a prefill "
+                               f"and {STEPS} decode steps each")
 
     t0 = _phase("deepseek reference", t0)
     _release(torch)
@@ -4858,6 +5155,7 @@ def main() -> int:
     print(smi, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps(glue_line), flush=True)
+    print(json.dumps(moe_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,5 @@
 // Helpers of the fused elementwise kernels (add_rmsnorm, gated_act, rope,
-// rope_cache_write).  Each replaces a run of eager PyTorch launches of the
+// rope_cache_write, and the MoE layer's moe_combine).  Each replaces a run of eager PyTorch launches of the
 // transformer's serving forward and decode step and must round where that
 // run rounds: every product, sum and difference the eager run computes in
 // its own launch is written with a _rn intrinsic here, so that nvcc cannot

@@ -35,7 +35,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNEL_SOURCES = ("decode_attention", "flash_attention", "wkv6",
                   "rglru_scan", "add_rmsnorm", "rope", "rope_cache_write",
-                  "gated_act")
+                  "gated_act", "moe_route", "moe_permute", "moe_combine")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -77,6 +77,15 @@ SIGNATURES = {
     "gated_act": (
         "gated_act_launch",
         [_c_ptr] * 3 + [_c_i64, _c_int, _c_int, _c_int, _c_ptr]),
+    "moe_route": (
+        "moe_route_launch",
+        [_c_ptr] * 6 + [_c_int] * 8 + [_c_ptr]),
+    "moe_permute": (
+        "moe_permute_launch",
+        [_c_ptr] * 5 + [_c_int] * 7 + [_c_ptr]),
+    "moe_combine": (
+        "moe_combine_launch",
+        [_c_ptr] * 4 + [_c_int] * 5 + [_c_ptr]),
 }
 
 

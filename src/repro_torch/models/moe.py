@@ -14,7 +14,17 @@ Two functions compute the same thing:
   gated rows are then added into an f32 output.  Its work grows with the
   routed pairs, no token is dropped (the reference at world size 1 drops
   none either: ``capacity_factor`` plays no part), and nothing is read
-  back to the host, so the static verifier can walk it.
+  back to the host, so the static verifier can walk it.  Where
+  :func:`fused_moe` holds (``use_kernels`` and no mesh) the router, the
+  pairs' placement with the rows' gather, and the combine go through the
+  wrappers of :mod:`repro_torch.kernels.moe`, and the gated activation
+  through ``glue.gated_act``: on the card their hand-written kernels, 11
+  launch calls a call around the three products where the eager
+  composition of the same steps makes about 35; on the CPU and on fake
+  tensors their plain versions, that composition.  As every kernel
+  wrapper does, they raise ``KernelError`` on the card for what the
+  kernels do not take (a float16 x, more than 256 experts or 8 choices,
+  an input that autograd would differentiate).
 
 Under a mesh whose model axis has more than one rank, :func:`moe_apply`
 takes the reference's expert-parallel path, :func:`moe_apply_ep`: each
@@ -37,15 +47,17 @@ The router renormalises each token's k weights to sum to 1 where
 ``cfg.norm_topk_prob`` holds (arctic, llama4: the reference's router);
 with it off (deepseek-moe) a token keeps its k softmax probabilities.
 
-:func:`moe_apply_grouped` counts its calls in ``moe_apply_grouped.calls``
-and the routed (token, expert) pairs, tokens x k, in
-``moe_apply_grouped.pairs``: host counters from the shapes alone, which
-read nothing back from the device.  :func:`recorded_routes` lists the
+:func:`moe_apply_grouped` counts its calls in ``moe_apply_grouped.calls``,
+the routed (token, expert) pairs, tokens x k, in
+``moe_apply_grouped.pairs``, and the calls that launched the kernels in
+``moe_apply_grouped.fused``: host counters, which read nothing back from
+the device.  :func:`recorded_routes` lists the
 experts each router call chose, for the checks that compare routes.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import threading
 from typing import Any, Dict, Optional, Tuple
@@ -54,6 +66,8 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import glue
+from repro_torch.kernels import moe as kmoe
 from repro_torch.models import layers
 from repro_torch.models.partition import (AxisInfo, P, all_gather,
                                           all_to_all, is_dtensor,
@@ -149,51 +163,38 @@ def _expert_ffn(x, w_gate, w_up, w_down, act: str, gated: bool):
 
 def _router(xf, router_w, k: int, mean=None, renorm: bool = True):
     """xf: [T, D] -> (weights [T, k] f32, experts [T, k] int64, aux loss
-    scalar f32).  f32 logits and softmax, the k largest probabilities
-    (renormalised by ``max(sum, 1e-9)`` with ``renorm``, as they are
-    without), and the Switch load-balance loss from each token's first
-    choice.  Ties go to the lower expert, as
-    ``jax.lax.top_k`` has them: a stable descending sort, where
-    ``torch.topk`` leaves the order of ties open.  ``mean`` (optional)
-    averages the two load-balance statistics over ranks."""
-    logits = xf.float() @ router_w.float()
-    probs = torch.softmax(logits, dim=-1)                        # [T, E]
-    top_w, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_w, top_i = top_w[:, :k], top_i[:, :k]
-    if renorm:
-        top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
-    T, E = probs.shape
-    me = probs.mean(dim=0)                                       # router frac
-    # first-choice counts without a one-hot (or bincount, whose length
-    # depends on the data under fake tensors)
-    ce = torch.zeros(E, dtype=torch.float32, device=xf.device).scatter_add_(
-        0, top_i[:, 0], torch.ones(T, dtype=torch.float32,
-                                   device=xf.device)) / T
-    if mean is not None:       # statistics over every rank's tokens
-        me, ce = mean(me), mean(ce)
-    aux = E * torch.sum(me * ce)
-    return top_w, top_i, aux
+    scalar f32): :func:`repro_torch.kernels.moe.router_plain`, the eager
+    router (f32 logits and softmax, the stable top-k, renormalised with
+    ``renorm``, the Switch load-balance loss; ``mean`` averages its two
+    statistics over ranks), its choices noted for
+    :func:`recorded_routes`."""
+    out = kmoe.router_plain(xf, router_w, k, mean, renorm)
+    _record(out[1])
+    return out
+
+
+#: the list :func:`recorded_routes` collects into, None outside it
+_ROUTES: Optional[list] = None
+
+
+def _record(top_i) -> None:
+    if _ROUTES is not None:
+        _ROUTES.append(top_i)
 
 
 @contextlib.contextmanager
 def recorded_routes():
-    """Within the block every :func:`_router` call of this module appends
+    """Within the block every router call of this module (:func:`_router`
+    and :func:`moe_apply_grouped`'s, on either path) appends
     the experts it chose ([T, k], in the call's order) to the list it
     yields.  Not thread-safe: the checks that compare routes call the
     model from one thread."""
-    global _router
-    routes, real = [], _router
-
-    def recording(*args, **kwargs):
-        out = real(*args, **kwargs)
-        routes.append(out[1])
-        return out
-
-    _router = recording
+    global _ROUTES
+    outer, _ROUTES = _ROUTES, []
     try:
-        yield routes
+        yield _ROUTES
     finally:
-        _router = real
+        _ROUTES = outer
 
 
 def moe_apply_reference(x, params, cfg: ModelConfig):
@@ -232,47 +233,61 @@ def _grouped(x, w, ends):
     return torch._grouped_mm(x, w, offs=ends)
 
 
+def fused_moe(cfg: ModelConfig, mean=None) -> bool:
+    """Whether :func:`moe_apply_grouped` routes, places and combines
+    through the kernel wrappers of :mod:`repro_torch.kernels.moe`: with
+    ``use_kernels`` and without statistics over ranks (``mean``: a mesh,
+    where the layers' glue stays eager too, ``transformer.fused_glue``).
+    Elsewhere it runs their plain versions."""
+    return cfg.use_kernels and mean is None
+
+
 def moe_apply_grouped(x, params, cfg: ModelConfig, mean=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> (y [B, S, D], aux): the served path, the same
     function as :func:`moe_apply_reference` (see the module docstring).
-    ``mean`` as in :func:`_router`."""
+    ``mean`` as in :func:`_router`.  Where :func:`fused_moe` holds, the
+    router, the pairs' placement and the combine are the wrappers of
+    :mod:`repro_torch.kernels.moe`, and the gated activation
+    ``glue.gated_act``; elsewhere their plain versions."""
     B, S, D = x.shape
-    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    k = cfg.num_experts_per_tok
     xf = x.reshape(-1, D)
-    T = xf.shape[0]
+    if fused_moe(cfg, mean):
+        route, permute, gated_act, combine = (
+            kmoe.moe_route, kmoe.moe_permute, glue.gated_act,
+            kmoe.moe_combine)
+    else:
+        route = functools.partial(kmoe.moe_route_plain, mean=mean)
+        permute, gated_act, combine = (
+            kmoe.moe_permute_plain, glue.gated_act_plain,
+            kmoe.moe_combine_plain)
+    routes = route(xf, params["router"], k, cfg.norm_topk_prob)
+    _record(routes.top_i)
     with _COUNT_LOCK:              # executor threads run layers at once
         moe_apply_grouped.calls += 1
-        moe_apply_grouped.pairs += T * k
-    top_w, top_i, aux = _router(xf, params["router"], k, mean,
-                                renorm=cfg.norm_topk_prob)
-    flat_e = top_i.reshape(-1)                                   # [T*k]
-    order = torch.argsort(flat_e, stable=True)      # pairs, by expert
-    token = order // k
-    counts = torch.zeros(E, dtype=torch.int64, device=x.device).scatter_add_(
-        0, flat_e, torch.ones_like(flat_e))
-    ends = torch.cumsum(counts, 0).to(torch.int32)
-    rows = xf[token]                                             # [T*k, D]
+        moe_apply_grouped.pairs += xf.shape[0] * k
+        moe_apply_grouped.fused += routes.work is not None
+    rows, pos = permute(xf, routes)
 
     def stack(name):       # int8 experts: bf16 as in the reference, to x's
         return _maybe_dequant(params[name]).to(x.dtype)
 
-    up = _grouped(rows, stack("w_up"), ends)
+    up = _grouped(rows, stack("w_up"), routes.ends)
     if cfg.gated_mlp:
-        h = layers._act(_grouped(rows, stack("w_gate"), ends), cfg.act) * up
+        h = gated_act(_grouped(rows, stack("w_gate"), routes.ends), up,
+                      cfg.act)
     else:
         h = layers._act(up, cfg.act)
     del up
-    out_rows = _grouped(h, stack("w_down"), ends)
-    gate = top_w.reshape(-1)[order]
-    y = torch.zeros((T, D), dtype=torch.float32, device=x.device)
-    y.index_add_(0, token, gate[:, None] * out_rows.float())
-    return y.reshape(B, S, D).to(x.dtype), aux
+    out_rows = _grouped(h, stack("w_down"), routes.ends)
+    return combine(out_rows, routes, pos).reshape(B, S, D), routes.aux
 
 
 _COUNT_LOCK = threading.Lock()
 moe_apply_grouped.calls = 0
 moe_apply_grouped.pairs = 0
+moe_apply_grouped.fused = 0
 
 
 # ---------------------------------------------------------------------------

@@ -181,13 +181,20 @@ def test_fused_glue_runs_in_the_dense_layer_and_the_shared_experts(
     cfg, model, params, toks = _setup(use_kernels=True)
     logits, cache = model.prefill(params, {"tokens": toks[:, :S]}, CACHE)
     L = cfg.num_layers
+    # each MoE layer's call routes, places, activates and combines
+    # through the MoE kernels' wrappers too
+    n_moe = L - cfg.first_k_dense
+    moe_calls = {"moe_route": n_moe, "moe_permute": n_moe,
+                 "moe_combine": n_moe}
     assert counts == {"add_rmsnorm": 2 * L + 1, "rope": L,
-                      "flash_attention": L, "gated_act": L}
+                      "flash_attention": L, "gated_act": L + n_moe,
+                      **moe_calls}
     counts.clear()
     model.decode_step(params, toks[:, S:S + 1],
                       torch.full((N,), S, dtype=torch.int32), cache)
     assert counts == {"add_rmsnorm": 2 * L + 1, "rope_cache_write": L,
-                      "decode_attention": L, "gated_act": L}
+                      "decode_attention": L, "gated_act": L + n_moe,
+                      **moe_calls}
 
 
 def test_first_layer_is_the_dense_one_the_check_reads():
