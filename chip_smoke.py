@@ -252,6 +252,7 @@ package is missing.
 import dataclasses
 import gc
 import json
+import contextlib
 import math
 import os
 import subprocess
@@ -1331,21 +1332,37 @@ def _row_steps(torch, got, want, dtype):
     return float(((got.float() - want.float()).abs() / step).max())
 
 
+@contextlib.contextmanager
+def _plain(fields):
+    """Within the block every layer's record (``layer_ops.layer_ops``)
+    gives ``fields`` their plain versions, the rest as served: the glue
+    (``layer_ops.GLUE``) or the MoE (``layer_ops.MOE``) eager beside the
+    other kernels.  With no fields nothing is replaced."""
+    from repro_torch.models import layer_ops
+
+    choose = layer_ops.layer_ops
+    if fields:
+        layer_ops.layer_ops = layer_ops.with_plain(fields)
+    try:
+        yield
+    finally:
+        layer_ops.layer_ops = choose
+
+
 def phase_glue_step(torch, dev, smi):
     """Full-width bf16 yi-9b: one prefill of [1, SEQ] tokens and a decode
     step at B 1 and B 8, each with the layers' glue fused (the path) and
-    with it eager (``transformer.fused_glue`` patched to False, everything
-    else alike): launch calls and the device's busy ms per call
+    with it eager (:func:`_plain` of the glue's fields, everything else
+    alike): launch calls and the device's busy ms per call
     (profiler), the host's enqueue ms and the event ms per call, and the
     logits of the two against each other."""
     from repro_torch.configs import get_config
-    from repro_torch.models import build_model, transformer
+    from repro_torch.models import build_model, layer_ops
 
     cfg = dataclasses.replace(get_config("yi-9b"), use_kernels=True)
     model = build_model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(SEED))
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    fused = transformer.fused_glue
     out = {}
     for B in (1, 8):
         toks = torch.randint(0, cfg.vocab_size, (B, SEQ), generator=g,
@@ -1360,16 +1377,12 @@ def phase_glue_step(torch, dev, smi):
         for what, fn in calls.items():
             res = {}
             for mode in ("eager glue", "fused glue"):
-                transformer.fused_glue = (fused if mode == "fused glue"
-                                          else lambda cfg, ax: False)
-                try:
+                with _plain(layer_ops.GLUE if mode == "eager glue" else ()):
                     first = fn()
                     torch.cuda.synchronize()
                     launches, busy = _profile_call(torch, fn)
                     host = host_ms(torch, fn, iters=GLUE_STEPS)
                     ev_ms = time_ms(torch, fn, iters=GLUE_STEPS, warmup=1)
-                finally:
-                    transformer.fused_glue = fused
                 res[mode] = {"launch_calls": launches, "host_ms": host,
                              "device_busy_ms": busy, "ms": ev_ms,
                              "logits": first[0][:, -1].float()}
@@ -1466,8 +1479,9 @@ def expected_launches(cfg, prefills, steps):
 
 def expected_glue(cfg, prefills, steps, ax=None):
     """Launches of each fused glue kernel over ``prefills`` dispatches of
-    the cascade (a prefill and ``steps`` decode steps each): where
-    ``transformer.fused_glue`` holds (a transformer family), a prefill and
+    the cascade (a prefill and ``steps`` decode steps each): where the
+    layers' record holds the glue kernels (a transformer family,
+    ``layer_ops.layer_ops``), a prefill and
     a decode step each run ``add_rmsnorm`` at every norm (two a layer,
     four with post norms, and the final one) and ``gated_act`` at every
     gated MLP (a layer's own, a MoE layer's ``aux_mlp``), a prefill one
@@ -1475,7 +1489,8 @@ def expected_glue(cfg, prefills, steps, ax=None):
     families, and a transformer under a mesh, run none.  Besides, a gated
     MoE layer on the MoE kernels' path (``expected_moe``) runs
     ``gated_act`` once a call, between its grouped products."""
-    from repro_torch.models import transformer
+    from repro_torch.kernels import glue
+    from repro_torch.models import layer_ops, transformer
 
     want = dict.fromkeys(GLUE, 0)
     if cfg.family not in ("dense", "moe", "vlm"):
@@ -1485,7 +1500,7 @@ def expected_glue(cfg, prefills, steps, ax=None):
     if cfg.gated_mlp:
         want["gated_act"] = expected_moe(cfg, prefills, steps,
                                          ax)["moe_route"]
-    if not transformer.fused_glue(cfg, ax):
+    if layer_ops.layer_ops(cfg, ax).add_norm is not glue.add_rmsnorm:
         return want
     L = sum(n for _, _, n in slots)
     want["add_rmsnorm"] = ((4 if cfg.post_norms else 2) * L + 1) * calls
@@ -1500,13 +1515,15 @@ def expected_glue(cfg, prefills, steps, ax=None):
 def expected_moe(cfg, prefills, steps, ax=None):
     """Launches of each MoE kernel over ``prefills`` dispatches of the
     cascade (a prefill and ``steps`` decode steps each): every MoE layer
-    call runs each once where ``moe.fused_moe`` holds (``use_kernels``
-    and no mesh), and none elsewhere."""
-    from repro_torch.models import moe, transformer
+    call runs each once where the layers' record holds the MoE kernels
+    (``layer_ops.layer_ops``: ``use_kernels`` and no mesh), and none
+    elsewhere."""
+    from repro_torch.kernels import moe as kmoe
+    from repro_torch.models import layer_ops, transformer
 
     want = dict.fromkeys(MOE_KERNELS, 0)
     if (cfg.family not in ("dense", "moe", "vlm") or not cfg.num_experts
-            or not moe.fused_moe(cfg) or ax is not None):
+            or layer_ops.layer_ops(cfg, ax).moe_route is not kmoe.moe_route):
         return want
     n_moe = sum(n for _, sp, n in transformer.layer_slots(cfg) if sp.is_moe)
     return dict.fromkeys(MOE_KERNELS, n_moe * prefills * (1 + steps))
@@ -3599,7 +3616,8 @@ def moe_layer_check(torch, dev, cfg, params, bar):
     bytes of expert weights each reads (the served path only its routed
     experts', the masked combine all E)."""
     from repro_torch.interop import torch_dtype
-    from repro_torch.models import moe, transformer
+    from repro_torch.kernels import moe as kmoe
+    from repro_torch.models import layer_ops, moe, transformer
 
     blk = str(next(key for key, sp, _ in transformer.layer_slots(cfg)
                    if sp.is_moe))
@@ -3617,7 +3635,7 @@ def moe_layer_check(torch, dev, cfg, params, bar):
         torch.cuda.synchronize()
         err = rel_err(got, want)
         T = PROMPTS * S
-        fused = moe.fused_moe(cfg)
+        fused = layer_ops.layer_ops(cfg, None).moe_route is kmoe.moe_route
         aux_ok = (rel_err(aux, aux_ref) <= MOE_AUX_REL if fused
                   else torch.equal(aux, aux_ref))
         check(bool(torch.isfinite(got).all()) and err <= bar and aux_ok,
@@ -3626,12 +3644,8 @@ def moe_layer_check(torch, dev, cfg, params, bar):
               f"{float(aux)} against {float(aux_ref)}")
         if fused:
             # the eager composition on the same input, for its own gap
-            takes = moe.fused_moe
-            moe.fused_moe = lambda *args, **kwargs: False
-            try:
+            with _plain(layer_ops.MOE):
                 eager_err = rel_err(moe.moe_apply(x, lp, cfg)[0], want)
-            finally:
-                moe.fused_moe = takes
             n, _ = _profile_call(torch, lambda: moe.moe_apply(x, lp, cfg))
             # in bf16 each grouped product is one CUTLASS kernel and its
             # data launch; in f32 torch runs it expert by expert
@@ -3733,15 +3747,14 @@ def _ds_reference(torch, params, cfg, seq, positions, quant=None):
 def _moe_step(torch, dev, model, params, cfg, smi):
     """Full-width deepseek-moe-16b: a prefill of [B, ``DS_SEQ``] tokens
     and a decode step after it at B 1 and 8, each with the MoE layers on
-    their kernels (the path) and eager (``moe.fused_moe`` patched to
-    False, everything else alike): launch calls and the device's busy ms
+    their kernels (the path) and eager (:func:`_plain` of the MoE's
+    fields, everything else alike): launch calls and the device's busy ms
     per call (profiler), the host's enqueue ms and the event ms per call,
     and the logits' rel gap between the two (printed; the reference check
     after holds the path to the float32 reference)."""
-    from repro_torch.models import moe
+    from repro_torch.models import layer_ops
 
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    takes = moe.fused_moe
     out = {}
     for B in (1, 8):
         toks = torch.randint(0, cfg.vocab_size, (B, DS_SEQ), generator=g,
@@ -3757,17 +3770,13 @@ def _moe_step(torch, dev, model, params, cfg, smi):
         for what, fn in calls.items():
             res = {}
             for mode in ("eager MoE", "MoE kernels"):
-                moe.fused_moe = (takes if mode == "MoE kernels"
-                                 else lambda *args, **kwargs: False)
-                try:
+                with _plain(layer_ops.MOE if mode == "eager MoE" else ()):
                     first = fn().float()
                     torch.cuda.synchronize()
                     launches, busy = _profile_call(torch, fn)
                     iters = 3 if what == "prefill" else 10
                     host = host_ms(torch, fn, iters=iters)
                     ev_ms = time_ms(torch, fn, iters=iters, warmup=1)
-                finally:
-                    moe.fused_moe = takes
                 res[mode] = {"launch_calls": launches, "host_ms": host,
                              "device_busy_ms": busy, "ms": ev_ms,
                              "logits": first}
@@ -4801,16 +4810,16 @@ def _mesh_serve(torch, dev, cfg, ax, mode, smi):
     ``param_pspecs(mode=mode)`` (the same tensors: views, no copy).  The
     tokens, the launches and the peak above the held weights are checked
     equal (the peak within 1%).  Under the mesh the layers keep the eager
-    glue (``transformer.fused_glue`` is false there), whose norms sum in
+    glue (``layer_ops.layer_ops`` gives it there), whose norms sum in
     another order than ``add_rmsnorm``: the run without a mesh that the
     mesh run is held to keeps it too (and the MoE layers' eager
-    composition, ``moe.fused_moe`` false as under the mesh), and a
+    composition, as under the mesh: :func:`_plain`), and a
     third run, without a mesh and with the glue and the MoE kernels as
     served, gives the path's own tokens and glue launches.
     Returns (the served path's tokens, the mesh run's launches, params)."""
     from repro_torch.launch import sharding as sh
 
-    from repro_torch.models import build_model, moe, transformer
+    from repro_torch.models import build_model, layer_ops
 
     params = build_model(cfg, device=dev).init(
         torch.Generator(device=dev).manual_seed(SEED))
@@ -4820,16 +4829,10 @@ def _mesh_serve(torch, dev, cfg, ax, mode, smi):
     want_glue = expected_glue(cfg, sum(disp), STEPS)
     check(glue_n == want_glue, f"{cfg.name} without a mesh: fused glue "
           f"launches {glue_n} == {want_glue}")
-    fused_glue, fused_moe = transformer.fused_glue, moe.fused_moe
-    transformer.fused_glue = lambda cfg, ax: False
-    moe.fused_moe = lambda *args, **kwargs: False
     torch.cuda.reset_peak_memory_stats(dev)
-    try:
+    with _plain(layer_ops.GLUE + layer_ops.MOE):
         _, _, _, want, lats, _, disp, launches = serve(torch, dev, cfg,
                                                        params=params)
-    finally:
-        transformer.fused_glue = fused_glue
-        moe.fused_moe = fused_moe
     peak0 = torch.cuda.max_memory_allocated(dev) - held
     want_launches = expected_launches(cfg, sum(disp), STEPS)
     check(launches == want_launches

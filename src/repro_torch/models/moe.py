@@ -14,17 +14,15 @@ Two functions compute the same thing:
   gated rows are then added into an f32 output.  Its work grows with the
   routed pairs, no token is dropped (the reference at world size 1 drops
   none either: ``capacity_factor`` plays no part), and nothing is read
-  back to the host, so the static verifier can walk it.  Where
-  :func:`fused_moe` holds (``use_kernels`` and no mesh) the router, the
-  pairs' placement with the rows' gather, and the combine go through the
-  wrappers of :mod:`repro_torch.kernels.moe`, and the gated activation
-  through ``glue.gated_act``: on the card their hand-written kernels, 11
-  launch calls a call around the three products where the eager
-  composition of the same steps makes about 35; on the CPU and on fake
-  tensors their plain versions, that composition.  As every kernel
-  wrapper does, they raise ``KernelError`` on the card for what the
-  kernels do not take (a float16 x, more than 256 experts or 8 choices,
-  an input that autograd would differentiate).
+  back to the host, so the static verifier can walk it.  The router, the
+  pairs' placement with the rows' gather, the gated activation and the
+  combine are the layer's ops (``models/layer_ops.py``): on the card
+  with ``use_kernels`` and no mesh the kernels of
+  :mod:`repro_torch.kernels.moe` and ``glue.gated_act``, 11 launch calls
+  a call around the three products where the eager composition makes
+  about 35.  As every kernel wrapper does, they raise ``KernelError`` on
+  the card for what the kernels do not take (a float16 x, more than 256
+  experts or 8 choices, an input that autograd would differentiate).
 
 Under a mesh whose model axis has more than one rank, :func:`moe_apply`
 takes the reference's expert-parallel path, :func:`moe_apply_ep`: each
@@ -57,7 +55,6 @@ experts each router call chose, for the checks that compare routes.
 from __future__ import annotations
 
 import contextlib
-import functools
 import math
 import threading
 from typing import Any, Dict, Optional, Tuple
@@ -66,9 +63,8 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import glue
 from repro_torch.kernels import moe as kmoe
-from repro_torch.models import layers
+from repro_torch.models import layer_ops, layers
 from repro_torch.models.partition import (AxisInfo, P, all_gather,
                                           all_to_all, is_dtensor,
                                           local_region, pmean, reshard)
@@ -233,55 +229,40 @@ def _grouped(x, w, ends):
     return torch._grouped_mm(x, w, offs=ends)
 
 
-def fused_moe(cfg: ModelConfig, mean=None) -> bool:
-    """Whether :func:`moe_apply_grouped` routes, places and combines
-    through the kernel wrappers of :mod:`repro_torch.kernels.moe`: with
-    ``use_kernels`` and without statistics over ranks (``mean``: a mesh,
-    where the layers' glue stays eager too, ``transformer.fused_glue``).
-    Elsewhere it runs their plain versions."""
-    return cfg.use_kernels and mean is None
-
-
-def moe_apply_grouped(x, params, cfg: ModelConfig, mean=None
+def moe_apply_grouped(x, params, cfg: ModelConfig, mean=None, ops=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> (y [B, S, D], aux): the served path, the same
-    function as :func:`moe_apply_reference` (see the module docstring).
-    ``mean`` as in :func:`_router`.  Where :func:`fused_moe` holds, the
-    router, the pairs' placement and the combine are the wrappers of
-    :mod:`repro_torch.kernels.moe`, and the gated activation
-    ``glue.gated_act``; elsewhere their plain versions."""
+    function as :func:`moe_apply_reference` (see the module docstring),
+    by the ``moe_*`` fields of ``ops`` (``layer_ops(cfg, None)`` when
+    None).  ``mean`` (a mesh's statistics) goes to its plain route."""
+    if ops is None:
+        ops = layer_ops.layer_ops(cfg, None)
     B, S, D = x.shape
     k = cfg.num_experts_per_tok
     xf = x.reshape(-1, D)
-    if fused_moe(cfg, mean):
-        route, permute, gated_act, combine = (
-            kmoe.moe_route, kmoe.moe_permute, glue.gated_act,
-            kmoe.moe_combine)
-    else:
-        route = functools.partial(kmoe.moe_route_plain, mean=mean)
-        permute, gated_act, combine = (
-            kmoe.moe_permute_plain, glue.gated_act_plain,
-            kmoe.moe_combine_plain)
-    routes = route(xf, params["router"], k, cfg.norm_topk_prob)
+    stats = {} if mean is None else {"mean": mean}
+    routes = ops.moe_route(xf, params["router"], k, cfg.norm_topk_prob,
+                           **stats)
     _record(routes.top_i)
     with _COUNT_LOCK:              # executor threads run layers at once
         moe_apply_grouped.calls += 1
         moe_apply_grouped.pairs += xf.shape[0] * k
         moe_apply_grouped.fused += routes.work is not None
-    rows, pos = permute(xf, routes)
+    rows, pos = ops.moe_permute(xf, routes)
 
     def stack(name):       # int8 experts: bf16 as in the reference, to x's
         return _maybe_dequant(params[name]).to(x.dtype)
 
     up = _grouped(rows, stack("w_up"), routes.ends)
     if cfg.gated_mlp:
-        h = gated_act(_grouped(rows, stack("w_gate"), routes.ends), up,
-                      cfg.act)
+        h = ops.moe_act(_grouped(rows, stack("w_gate"), routes.ends), up,
+                        cfg.act)
     else:
         h = layers._act(up, cfg.act)
     del up
     out_rows = _grouped(h, stack("w_down"), routes.ends)
-    return combine(out_rows, routes, pos).reshape(B, S, D), routes.aux
+    y = ops.moe_combine(out_rows, routes, pos)
+    return y.reshape(B, S, D), routes.aux
 
 
 _COUNT_LOCK = threading.Lock()
@@ -449,7 +430,7 @@ def moe_apply_ep(x, params, cfg: ModelConfig, ax: AxisInfo, *,
         *args)
 
 
-def _moe_apply_local(x, params, cfg: ModelConfig, ax: AxisInfo):
+def _moe_apply_local(x, params, cfg: ModelConfig, ax: AxisInfo, ops):
     """The served grouped path under a mesh with one model rank: each
     rank runs its own batch rows, with the experts whole; the router's
     load-balance statistics are averaged over the data ranks."""
@@ -461,7 +442,8 @@ def _moe_apply_local(x, params, cfg: ModelConfig, ax: AxisInfo):
     def fn(x_loc, router_w, *w_loc):
         p = {"router": router_w, **_weight_tree(names, w_loc)}
         return moe_apply_grouped(x_loc, p, cfg,
-                                 mean=lambda t: pmean(t, data_groups))
+                                 mean=lambda t: pmean(t, data_groups),
+                                 ops=ops)
 
     xs = P(dp, None, None)
     w_specs = [P(*[None] * t.ndim) for t in ws]
@@ -473,15 +455,18 @@ def _moe_apply_local(x, params, cfg: ModelConfig, ax: AxisInfo):
 
 
 def moe_apply(x, params, cfg: ModelConfig, ax: Optional[AxisInfo] = None, *,
-              seq_sharded: bool = True, dispatch: str = "all_to_all"
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              seq_sharded: bool = True, dispatch: str = "all_to_all",
+              ops=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MoE layer.  Returns (y, aux).  Without a mesh (or on plain
     tensors), or with one model rank, the served grouped path
-    (:func:`moe_apply_grouped`); with more model ranks the reference's
-    expert-parallel path (:func:`moe_apply_ep`)."""
+    (:func:`moe_apply_grouped` by ``ops``, ``layer_ops(cfg, ax)`` when
+    None); with more model ranks the reference's expert-parallel path
+    (:func:`moe_apply_ep`)."""
+    if ops is None:
+        ops = layer_ops.layer_ops(cfg, ax)
     if ax is None or not is_dtensor(x):
-        return moe_apply_grouped(x, params, cfg)
+        return moe_apply_grouped(x, params, cfg, ops=ops)
     if ax.mp_size == 1:
-        return _moe_apply_local(x, params, cfg, ax)
+        return _moe_apply_local(x, params, cfg, ax, ops)
     return moe_apply_ep(x, params, cfg, ax, seq_sharded=seq_sharded,
                         dispatch=dispatch)

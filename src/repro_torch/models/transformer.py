@@ -40,21 +40,16 @@ position p at slot ``p % W``.  When S > W and S % W != 0 the first decode
 steps overwrite keys still inside the window; the reference does the
 same, and the port keeps it for parity (ROADMAP.md §3).
 
-``cfg.use_kernels`` selects the CUDA kernels at the two self-attention
-sites (the prefill's flash attention and the decode step's decode
-attention) and, where :func:`fused_glue` holds, for the layer's
-elementwise glue (:mod:`repro_torch.kernels.glue`): each residual add
-with the RMSNorm after it (``add_rmsnorm``), the prefill's RoPE
-(``rope``), the decode step's RoPE and ring write
-(``rope_cache_write``) and the gated MLP's activation (``gated_act``).
-On CPU tensors the kernel wrappers run their plain versions, the eager
-composition op for op.
+The layers' ops (the two self-attention sites, the elementwise glue and
+the MoE call's) come from one record a call,
+:func:`repro_torch.models.layer_ops.layer_ops`, which chooses between the
+CUDA kernels and their plain versions.  A residual add is held back
+(``delta``) for the norm that reads its sum.
 The kernels have no backward, as the reference's have none: training
 differentiates the plain composition (``use_kernels=False``), and a
 kernel wrapper refuses CUDA inputs that require grad.
 Cross attention stays plain PyTorch, as in the reference, which calls no
-Pallas kernel there, and so does the MoE layer, whose products the
-reference computes outside any Pallas kernel.
+Pallas kernel there.
 
 Under a mesh (``ax``, :mod:`repro_torch.models.partition`) the heads are
 padded and the KV heads replicated to the model axis, the params, inputs
@@ -76,8 +71,7 @@ from torch._subclasses.fake_tensor import FakeTensor
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.interop import torch_dtype
-from repro_torch.kernels import glue
-from repro_torch.models import layers, moe as moe_lib
+from repro_torch.models import layer_ops, layers, moe as moe_lib
 from repro_torch.models.partition import (AxisInfo, P, dp_axes, gather_fsdp,
                                           heads_spec, local_region, mp_axis,
                                           mp_size, reshard, rows, shard,
@@ -262,28 +256,13 @@ def _attn_scale(cfg: ModelConfig) -> float:
     return 1.0 / math.sqrt(cfg.head_dim)
 
 
-def fused_glue(cfg: ModelConfig, ax: Optional[AxisInfo]) -> bool:
-    """Whether the layers' elementwise glue runs as the fused kernels of
-    :mod:`repro_torch.kernels.glue`: with ``use_kernels``, an rmsnorm
-    model, a ring in the model's dtype and no mesh.  Elsewhere the
-    layers keep the eager composition: a layernorm, ``kv_quant``'s
-    quantize-then-write into an int8 ring, and the DTensor composition
-    under a mesh (the kernels take plain tensors).
-
-    With the glue fused, a residual add is held back (``delta``) and done
-    by the ``add_rmsnorm`` launch of the norm that reads its sum; the
-    adds and norms still come in the eager order."""
-    return (cfg.use_kernels and ax is None and cfg.norm == "rmsnorm"
-            and not cfg.kv_quant)
-
-
 #: (head_dim, theta, device) -> the RoPE frequency table, built once
 _ROPE_TABLES: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
 
 
 def rope_table(head_dim: int, theta: float, device) -> Optional[torch.Tensor]:
     """``layers.rope_frequencies(head_dim, theta)`` on ``device``, the
-    table the fused RoPE kernels read, built once and kept; None where
+    table every RoPE of the layers reads, built once and kept; None where
     theta <= 0 (no rotation).  A table built on fake tensors (a shape
     walk) is not kept."""
     if theta <= 0.0:
@@ -297,26 +276,6 @@ def rope_table(head_dim: int, theta: float, device) -> Optional[torch.Tensor]:
     return table
 
 
-def _norm_of(x, delta, p, cfg: ModelConfig, fused: bool):
-    """(the residual, its norm by the norm params ``p``): with the fused
-    glue one ``add_rmsnorm`` launch adds the held-back ``delta`` (None:
-    nothing held) and norms the sum, else ``layers.apply_norm`` (nothing
-    is held back then)."""
-    if fused:
-        return glue.add_rmsnorm(x, delta, p["scale"])
-    return x, layers.apply_norm(x, p, cfg.norm)
-
-
-def _residual_add(x, y, fused: bool):
-    """``x + y`` as (residual, held-back delta): with the fused glue the
-    add waits for the next norm's ``add_rmsnorm``, else it is done now.
-    Nothing is held back at an add site: a norm or :func:`_flush` took
-    it."""
-    if fused:
-        return x, y
-    return x + y, None
-
-
 def _head(params, table, cfg: ModelConfig, ax):
     """The output head: the embedding table, or with ``tie_embeddings``
     off the ``head`` leaf, placed as the table is."""
@@ -326,9 +285,9 @@ def _head(params, table, cfg: ModelConfig, ax):
 
 
 def _flush(x, delta):
-    """The residual with any held-back delta added: for work that reads
+    """The residual with the held-back delta added: for work that reads
     the residual itself (cross attention)."""
-    return x if delta is None else x + delta
+    return x + delta
 
 
 def project_qkv(x, ap, cfg: ModelConfig, mp: int = 1):
@@ -342,35 +301,20 @@ def project_qkv(x, ap, cfg: ModelConfig, mp: int = 1):
 
 
 def _attn_core_full(q, k, v, positions, *, cfg: ModelConfig,
-                    spec: LayerSpec, chunk: int, fused: bool = False):
+                    spec: LayerSpec, chunk: int, ops):
     """RoPE and the attention on one rank's heads (plain tensors: the
-    kernels' ``ctypes`` launch takes nothing else); with the fused glue
-    one ``rope`` launch rotates q and k.  Returns (out, k)."""
-    if fused:
-        q, k = glue.rope(q, k, positions, rope_table(
-            q.shape[-1], cfg.rope_theta, q.device))
-    else:
-        q = layers.apply_rope(q, positions, cfg.rope_theta)
-        k = layers.apply_rope(k, positions, cfg.rope_theta)
-    if cfg.use_kernels:
-        from repro_torch.kernels import ops as kops
-        # [B,S,H,hd] -> [B,H,S,hd] views: the kernel reads strides
-        out = kops.flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=True, window=spec.window,
-            softcap=cfg.attn_logit_softcap, scale=_attn_scale(cfg),
-        ).transpose(1, 2)
-    else:
-        out = layers.chunked_attention(
-            q, k, v, q_positions=positions, k_positions=positions,
-            causal=True, window=spec.window,
-            softcap=cfg.attn_logit_softcap,
-            chunk_q=chunk, chunk_k=chunk, scale=_attn_scale(cfg))
+    kernels' ``ctypes`` launch takes nothing else).  Returns (out, k)."""
+    q, k = ops.rope(q, k, positions,
+                    rope_table(q.shape[-1], cfg.rope_theta, q.device))
+    out = ops.attention(
+        q, k, v, q_positions=positions, k_positions=positions, causal=True,
+        window=spec.window, softcap=cfg.attn_logit_softcap, chunk_q=chunk,
+        chunk_k=chunk, scale=_attn_scale(cfg))
     return out, k
 
 
 def _self_attention_full(x, ap, cfg: ModelConfig, ax, spec: LayerSpec,
-                         positions, chunk: int = 1024):
+                         positions, ops, chunk: int = 1024):
     """Full-sequence (prefill) self attention.  Returns (out, k, v).
     Under a mesh the attention runs on each rank's local heads
     (:func:`~repro_torch.models.partition.local_region`)."""
@@ -380,7 +324,7 @@ def _self_attention_full(x, ap, cfg: ModelConfig, ax, spec: LayerSpec,
     k = shard(ax, k, *hs)
     v = shard(ax, v, *hs)
     core = functools.partial(_attn_core_full, cfg=cfg, spec=spec,
-                             chunk=chunk, fused=fused_glue(cfg, ax))
+                             chunk=chunk, ops=ops)
     out, k = local_region(ax, core, (hs, hs, hs, None), (hs, hs))(
         q, k, v, positions)
     out = out.reshape(x.shape[0], x.shape[1], -1) @ ap["wo"]
@@ -388,71 +332,29 @@ def _self_attention_full(x, ap, cfg: ModelConfig, ax, spec: LayerSpec,
 
 
 def _decode_core(q, k, v, pos, kc, vc, pc, *scales, cfg: ModelConfig,
-                 spec: LayerSpec, fused: bool = False):
+                 spec: LayerSpec, ops):
     """RoPE, the ring write and the attention of one decode step, on one
     rank's batch rows and heads.  kc/vc/pc (and the ``kv_quant`` scales)
     are written IN PLACE: DTensor's own rule for the indexed write would
-    gather the batch first.  With the fused glue one ``rope_cache_write``
-    launch does the RoPE and the ring write."""
-    if fused:
-        pos = pos.to(torch.int32)
-        q = glue.rope_cache_write(q, k, v, pos, kc, vc, pc, rope_table(
-            q.shape[-1], cfg.rope_theta, q.device))
-        return _decode_attend(q, kc, vc, pos, pc, cfg=cfg, spec=spec)
-    if not cfg.kv_quant:
-        freqs = (layers.rope_frequencies(q.shape[-1], cfg.rope_theta,
-                                         device=q.device)
-                 if cfg.rope_theta > 0.0 else None)
-        q = glue.rope_cache_write_plain(q, k, v, pos, kc, vc, pc, freqs)
-        return _decode_attend(q, kc, vc, pos, pc, cfg=cfg, spec=spec)
-    q = layers.apply_rope(q, pos[:, None], cfg.rope_theta)
-    k = layers.apply_rope(k, pos[:, None], cfg.rope_theta)
-    W = kc.shape[1]
-    slot = (pos % W).long()                                       # [B]
-    b_idx = torch.arange(q.shape[0], device=q.device)
-    ks, vs = scales
-    kq, ksc = layers.kv_quantize(k[:, 0])
-    vq, vsc = layers.kv_quantize(v[:, 0])
-    kc[b_idx, slot] = kq
-    vc[b_idx, slot] = vq
-    ks[b_idx, slot] = ksc
-    vs[b_idx, slot] = vsc
-    pc[b_idx, slot] = pos.to(pc.dtype)
-    return _decode_attend(q, layers.kv_dequantize(kc, ks, k.dtype),
-                          layers.kv_dequantize(vc, vs, v.dtype), pos, pc,
-                          cfg=cfg, spec=spec)
-
-
-def _decode_attend(q, k_read, v_read, pos, pc, *, cfg: ModelConfig,
-                   spec: LayerSpec):
-    """The decode step's attention over the written ring: the kernel with
-    ``use_kernels``, else the plain version.  Returns (out,)."""
-    if cfg.use_kernels:
-        from repro_torch.kernels import ops as kops
-        # [B,W,K,hd] -> [B,K,W,hd] is a view; the kernel reads strides
-        out = kops.decode_attention(
-            q[:, 0], k_read.transpose(1, 2), v_read.transpose(1, 2), pc,
-            pos.to(torch.int32), window=spec.window,
-            softcap=cfg.attn_logit_softcap,
-            scale=_attn_scale(cfg))[:, None]
-    else:
-        out = layers.decode_attention(
-            q, k_read, v_read, q_position=pos, k_positions=pc,
-            window=spec.window, softcap=cfg.attn_logit_softcap,
-            scale=_attn_scale(cfg))
-    return (out,)
+    gather the batch first.  Returns (out,)."""
+    pos = pos.to(torch.int32)
+    q, k_read, v_read = ops.ring_write(
+        q, k, v, pos, kc, vc, pc, scales,
+        rope_table(q.shape[-1], cfg.rope_theta, q.device))
+    return (ops.decode_attention(
+        q, k_read, v_read, q_position=pos, k_positions=pc,
+        window=spec.window, softcap=cfg.attn_logit_softcap,
+        scale=_attn_scale(cfg)),)
 
 
 def _self_attention_decode(x, ap, cfg: ModelConfig, ax, spec: LayerSpec,
-                           pos, kc, vc, pc, scales=None):
+                           ops, pos, kc, vc, pc, scales=None):
     """One-token decode.  x: [B,1,D]; kc/vc: [B,W,Kp,hd] (int8 when
     ``cfg.kv_quant``, with ``scales`` = (ks, vs) f32 [B,W,Kp]) and pc:
     [B,W] slot positions (-1 = empty) — this layer's slices of the decode
     step's private cache copy, written IN PLACE (the caller cloned the
-    cache, so the table columns it came from are never touched).  With
-    ``kv_quant`` the new key and value are quantized into their slot and
-    the whole ring is dequantized before the attention, in the
-    reference's order.  pos: [B].  Returns out."""
+    cache, so the table columns it came from are never touched).  pos:
+    [B].  Returns out."""
     q, k, v = project_qkv(x, ap, cfg, mp_size(ax))
     hs, dp = heads_spec(ax), dp_axes(ax)
     q, k, v = (reshard(ax, t, *hs) for t in (q, k, v))
@@ -461,8 +363,7 @@ def _self_attention_decode(x, ap, cfg: ModelConfig, ax, spec: LayerSpec,
     if cfg.kv_quant:
         args += list(scales)
         specs += [P(dp, None, mp_axis(ax))] * 2
-    core = functools.partial(_decode_core, cfg=cfg, spec=spec,
-                             fused=fused_glue(cfg, ax))
+    core = functools.partial(_decode_core, cfg=cfg, spec=spec, ops=ops)
     (out,) = local_region(ax, core, specs, (hs,))(*args)
     return out.reshape(x.shape[0], 1, -1) @ ap["wo"]
 
@@ -503,16 +404,16 @@ def media_kv_from_embeddings(media, cp, cfg: ModelConfig, mp: int = 1):
     return mk, mv
 
 
-def _mlp(x, p, cfg: ModelConfig, ax):
-    """``layers.mlp_apply``; a gated MLP with the fused glue takes its
-    activation and product in one ``gated_act`` launch."""
-    if cfg.gated_mlp and fused_glue(cfg, ax):
-        return glue.gated_act(x @ p["w_gate"], x @ p["w_up"],
-                              cfg.act) @ p["w_down"]
-    return layers.mlp_apply(x, p, gated=cfg.gated_mlp, act=cfg.act)
+def _mlp(x, p, cfg: ModelConfig, ops):
+    """``layers.mlp_apply``, a gated MLP's activation and product by
+    ``ops.gated_act``."""
+    if cfg.gated_mlp:
+        return ops.gated_act(x @ p["w_gate"], x @ p["w_up"],
+                             cfg.act) @ p["w_down"]
+    return layers.mlp_apply(x, p, gated=False, act=cfg.act)
 
 
-def _layer_ffn(x, lp, spec: LayerSpec, cfg: ModelConfig, ax=None, *,
+def _layer_ffn(x, lp, spec: LayerSpec, cfg: ModelConfig, ax, ops, *,
                seq_sharded: bool = False, moe_dispatch: str = "all_to_all"):
     """The FFN part: the MLP, or the MoE layer plus its ``aux_mlp``.
     Returns (y, aux): the router's load-balance loss (None for a dense
@@ -521,11 +422,11 @@ def _layer_ffn(x, lp, spec: LayerSpec, cfg: ModelConfig, ax=None, *,
         with scope("moe", span=False):
             y, aux = moe_lib.moe_apply(x, lp["moe"], cfg, ax,
                                        seq_sharded=seq_sharded,
-                                       dispatch=moe_dispatch)
+                                       dispatch=moe_dispatch, ops=ops)
         if spec.aux_mlp:
-            y = y + rows(ax, _mlp(rows(ax, x), lp["aux_mlp"], cfg, ax))
+            y = y + rows(ax, _mlp(rows(ax, x), lp["aux_mlp"], cfg, ops))
         return y, aux
-    return _mlp(rows(ax, x), lp["mlp"], cfg, ax), None
+    return _mlp(rows(ax, x), lp["mlp"], cfg, ops), None
 
 
 # ---------------------------------------------------------------------------
@@ -565,7 +466,7 @@ def forward(params, tokens, cfg: ModelConfig, *, ax: Optional[AxisInfo] = None,
     if media is not None:
         media = shard(ax, media, dp, None, None)
     seq_sharded = ax is not None and cfg.seq_shard
-    fused = fused_glue(cfg, ax)
+    ops = layer_ops.layer_ops(cfg, ax)
 
     def _out(t):
         """A layer's output (partial sums over model) summed into the
@@ -579,8 +480,8 @@ def forward(params, tokens, cfg: ModelConfig, *, ax: Optional[AxisInfo] = None,
 
     def block_fn(x, delta, blk, first: int, specs: List[LayerSpec]):
         """One block of a group (:func:`layer_groups`) from the residual
-        ``x`` (and, with the fused glue, the last layer's held-back
-        ``delta``, else None)."""
+        ``x`` and the last layer's held-back ``delta`` (None before the
+        first)."""
         auxes: List[torch.Tensor] = []
         cache_out: Dict[str, torch.Tensor] = {}
         blk = gather_fsdp(ax, blk)
@@ -593,32 +494,27 @@ def forward(params, tokens, cfg: ModelConfig, *, ax: Optional[AxisInfo] = None,
             # ops run in program order: the gather (``rows``) always moves
             # the norm's output in the model's dtype, so the port has
             # nothing to pin, and the barrier changes no value.
-            x, h = _norm_of(x, delta, lp["ln1"], cfg, fused)
+            x, h = ops.add_norm(x, delta, **lp["ln1"])
             attn_out, k, v = _self_attention_full(h, lp["attn"], cfg, ax,
-                                                  spec, positions,
+                                                  spec, positions, ops,
                                                   chunk=chunk)
             if cfg.post_norms:
-                _, attn_out = _norm_of(attn_out, None, lp["post_ln1"], cfg,
-                                       fused)
-            attn_out = _out(attn_out)
-            x, delta = _residual_add(x, attn_out, fused)
+                _, attn_out = ops.add_norm(attn_out, None, **lp["post_ln1"])
+            delta = _out(attn_out)
             if spec.has_cross and media is not None:
-                x, delta = _flush(x, delta), None
+                x = _flush(x, delta)
                 mkv = media_kv_from_embeddings(media, lp["cross"], cfg,
                                                mp_size(ax))
-                x, delta = _residual_add(x, _out(_cross_attention(
-                    x, lp["cross"], cfg, ax, mkv)), fused)
+                delta = _out(_cross_attention(x, lp["cross"], cfg, ax, mkv))
                 if build_cache:
                     cache_out[f"ck{i}"], cache_out[f"cv{i}"] = mkv
-            x, h = _norm_of(x, delta, lp["ln2"], cfg, fused)
-            ffn_out, aux = _layer_ffn(h, lp, spec, cfg, ax,
+            x, h = ops.add_norm(x, delta, **lp["ln2"])
+            ffn_out, aux = _layer_ffn(h, lp, spec, cfg, ax, ops,
                                       seq_sharded=seq_sharded,
                                       moe_dispatch=moe_dispatch)
             if cfg.post_norms:
-                _, ffn_out = _norm_of(ffn_out, None, lp["post_ln2"], cfg,
-                                      fused)
-            ffn_out = _out(ffn_out)
-            x, delta = _residual_add(x, ffn_out, fused)
+                _, ffn_out = ops.add_norm(ffn_out, None, **lp["post_ln2"])
+            delta = _out(ffn_out)
             if aux is not None:
                 auxes.append(aux)
             if build_cache:
@@ -636,7 +532,7 @@ def forward(params, tokens, cfg: ModelConfig, *, ax: Optional[AxisInfo] = None,
         auxes += blk_aux
         for name, t in cache_out.items():
             caches.setdefault(name, []).append(t)
-    _, x = _norm_of(x, delta, params["final_norm"], cfg, fused)
+    _, x = ops.add_norm(x, delta, **params["final_norm"])
     logits = layers.unembed(rows(ax, x), _head(params, table, cfg, ax),
                             softcap=cfg.final_logit_softcap)
     logits = shard(ax, logits, dp, seq_ax, None)
@@ -784,39 +680,35 @@ def decode_step(params, tokens, pos, cache, cfg: ModelConfig, *,
     new_cache = {k: v if k.startswith(_READ_ONLY) else v.clone()
                  for k, v in cache.items()}
     dp = dp_axes(ax)
-    fused = fused_glue(cfg, ax)
+    ops = layer_ops.layer_ops(cfg, ax)
     table = vocab_table(params, ax)
     x = layers.embed_lookup(table, tokens, scale_by_dim=cfg.embedding_scale)
     x = shard(ax, x, dp, None, None)
-    delta = None        # the held-back residual add of the fused glue
+    delta = None        # the held-back residual add
     for first, specs, j, blk in _block_slices(params["blocks"], groups):
         blk = gather_fsdp(ax, blk)
         x = shard(ax, x, dp, None, None)
         for i, spec in enumerate(specs, first):
             lp = blk[str(i)]
-            x, h = _norm_of(x, delta, lp["ln1"], cfg, fused)
+            x, h = ops.add_norm(x, delta, **lp["ln1"])
             scales = ((new_cache[f"ks{i}"][j], new_cache[f"vs{i}"][j])
                       if cfg.kv_quant else None)
-            attn_out = _self_attention_decode(
-                h, lp["attn"], cfg, ax, spec, pos, new_cache[f"k{i}"][j],
-                new_cache[f"v{i}"][j], new_cache[f"pos{i}"][j], scales)
+            delta = _self_attention_decode(
+                h, lp["attn"], cfg, ax, spec, ops, pos,
+                new_cache[f"k{i}"][j], new_cache[f"v{i}"][j],
+                new_cache[f"pos{i}"][j], scales)
             if cfg.post_norms:
-                _, attn_out = _norm_of(attn_out, None, lp["post_ln1"], cfg,
-                                       fused)
-            x, delta = _residual_add(x, attn_out, fused)
+                _, delta = ops.add_norm(delta, None, **lp["post_ln1"])
             if spec.has_cross:
-                x, delta = _flush(x, delta), None
+                x = _flush(x, delta)
                 mkv = (new_cache[f"ck{i}"][j], new_cache[f"cv{i}"][j])
-                x, delta = _residual_add(
-                    x, _cross_attention(x, lp["cross"], cfg, ax, mkv), fused)
-            x, h = _norm_of(x, delta, lp["ln2"], cfg, fused)
-            ffn_out, _ = _layer_ffn(h, lp, spec, cfg, ax,
-                                    moe_dispatch=moe_dispatch)
+                delta = _cross_attention(x, lp["cross"], cfg, ax, mkv)
+            x, h = ops.add_norm(x, delta, **lp["ln2"])
+            delta, _ = _layer_ffn(h, lp, spec, cfg, ax, ops,
+                                  moe_dispatch=moe_dispatch)
             if cfg.post_norms:
-                _, ffn_out = _norm_of(ffn_out, None, lp["post_ln2"], cfg,
-                                      fused)
-            x, delta = _residual_add(x, ffn_out, fused)
-    _, x = _norm_of(x, delta, params["final_norm"], cfg, fused)
+                _, delta = ops.add_norm(delta, None, **lp["post_ln2"])
+    _, x = ops.add_norm(x, delta, **params["final_norm"])
     logits = layers.unembed(rows(ax, x), _head(params, table, cfg, ax),
                             softcap=cfg.final_logit_softcap)
     return logits, new_cache

@@ -27,7 +27,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan_plain  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6_plain  # noqa: E402
 
-from repro_torch.models import rglru, transformer  # noqa: E402
+from repro_torch.models import layer_ops, rglru, transformer  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -1444,7 +1444,8 @@ def test_rope_cache_write_kernel_matches_plain(dev, dtype, theta, pos):
         assert got is q
 
 
-def test_decode_step_on_card_fused_glue_matches_eager_glue(dev, monkeypatch):
+def test_decode_step_on_card_glue_kernels_match_eager_glue(dev,
+                                                         monkeypatch):
     """Tiny bf16 yi-9b on the card: a prefill and two decode steps with
     the glue fused give the eager glue's logits within the bf16 bar and
     its ring positions exactly, with 2L + 1 ``add_rmsnorm``, L ``rope``
@@ -1477,7 +1478,8 @@ def test_decode_step_on_card_fused_glue_matches_eager_glue(dev, monkeypatch):
     got = {f.__name__: f.launches - n for f, n in n0.items()}
     assert got == {"add_rmsnorm": 3 * (2 * L + 1), "rope": L,
                    "rope_cache_write": 2 * L, "gated_act": 3 * L}
-    monkeypatch.setattr(transformer, "fused_glue", lambda cfg, ax: False)
+    monkeypatch.setattr(layer_ops, "layer_ops",
+                        layer_ops.with_plain(layer_ops.GLUE))
     eager, ecache = run()
     for a, b in zip(fused, eager):
         _close(a, b, torch.bfloat16)

@@ -13,8 +13,9 @@ top 3, shared experts of 128).
   with it (arctic, llama4) the weights are the renormalised ones, as
   before.
 * The shared experts' one SwiGLU of 2F is the two experts of F summed.
-* The fused glue equals the eager glue bit for bit, and runs in the
-  shared experts.
+* The glue kernels run in the dense layer and the shared experts (their
+  equality with the eager glue is a case of the glue tests'
+  ``test_glue_kernels_equal_the_eager_glue``).
 * The dense prefix leaves yi-9b's, gemma2-9b's, arctic-480b's and
   llama4's layouts, weight trees and caches as the reference package has
   them, key for key and shape for shape.
@@ -31,7 +32,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config, get_tiny_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.models import build_model, moe, transformer  # noqa: E402
+from repro_torch.models import (build_model, layer_ops, moe,  # noqa: E402
+                                 transformer)
 from repro_torch.reference import deepseek_moe as ref  # noqa: E402
 
 ARCH = "deepseek-moe-16b"
@@ -138,37 +140,14 @@ def test_shared_experts_as_one_swiglu_equal_the_two_summed(fused):
             "w_up": torch.cat([a["w_up"], b["w_up"]], 1),
             "w_down": torch.cat([a["w_down"], b["w_down"]], 0)}
     x = torch.randn(2, 5, D, generator=g)
-    got = transformer._mlp(x, both, cfg, None)
-    want = transformer._mlp(x, a, cfg, None) + transformer._mlp(
-        x, b, cfg, None)
+    ops = layer_ops.layer_ops(cfg, None)
+    got = transformer._mlp(x, both, cfg, ops)
+    want = transformer._mlp(x, a, cfg, ops) + transformer._mlp(
+        x, b, cfg, ops)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
-def _serve_all(**over):
-    """Every logit and cache leaf of a full forward, a prefill and STEPS
-    greedy decode steps of tiny deepseek-moe."""
-    cfg, model, params, toks = _setup("bfloat16", **over)
-    out = [model.logits(params, {"tokens": toks})]
-    logits, cache = model.prefill(params, {"tokens": toks[:, :S]}, CACHE)
-    pos = torch.full((N,), S, dtype=torch.int32)
-    for _ in range(STEPS):
-        out += [logits] + [cache[n] for n in sorted(cache)]
-        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
-        logits, cache = model.decode_step(params, tok, pos, cache)
-        pos = pos + 1
-    return out + [logits] + [cache[n] for n in sorted(cache)]
-
-
-def test_fused_glue_equals_the_eager_glue(monkeypatch):
-    fused = _serve_all(use_kernels=True)
-    monkeypatch.setattr(transformer, "fused_glue", lambda cfg, ax: False)
-    eager = _serve_all(use_kernels=True)
-    assert len(eager) == len(fused)
-    for a, b in zip(eager, fused):
-        assert a.dtype == b.dtype and torch.equal(a, b)
-
-
-def test_fused_glue_runs_in_the_dense_layer_and_the_shared_experts(
+def test_glue_kernels_run_in_the_dense_layer_and_the_shared_experts(
         monkeypatch):
     counts = {}
     card_of = build.card_of

@@ -9,10 +9,12 @@ CPU, where each wrapper runs its plain version.
   wrapped ring, a windowed ring, no rotation at theta 0), ``gated_act``
   is ``layers._act(gate) * up`` (silu, gelu).
 * The transformer's prefill, full forward and decode steps with
-  ``use_kernels=True`` (the fused glue) give logits and caches identical
-  to ``use_kernels=False`` on tiny yi-9b, gemma2-9b and granite-34b
-  configs, and to ``use_kernels=True`` with the glue eager on those and
-  llama-3.2-vision-11b (a cross layer).
+  ``use_kernels=True`` (the glue kernels) give logits and caches
+  identical to ``use_kernels=False`` on tiny yi-9b, gemma2-9b and
+  granite-34b configs, and to ``use_kernels=True`` with the glue eager
+  (``layer_ops.with_plain(GLUE)`` in place of ``layer_ops.layer_ops``)
+  on those, llama-3.2-vision-11b (a cross layer) and deepseek-moe-16b (a
+  dense first layer, shared experts, the MoE kernels' wrappers).
 * Counting: a decode step calls ``add_rmsnorm`` twice a layer plus the
   final norm (gemma2's post norms twice more), ``rope_cache_write`` and
   ``gated_act`` once a layer (granite's MLP is not gated), a prefill
@@ -34,7 +36,8 @@ from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 
 from repro_torch.configs import get_tiny_config  # noqa: E402
 from repro_torch.kernels import build, glue  # noqa: E402
-from repro_torch.models import build_model, layers, transformer  # noqa: E402
+from repro_torch.models import (build_model, layer_ops, layers,  # noqa: E402
+                                 transformer)
 
 DTYPES = [torch.float32, torch.bfloat16]
 GLUE = ("add_rmsnorm", "rope", "rope_cache_write", "gated_act")
@@ -168,7 +171,7 @@ def test_gated_act_plain_is_the_eager_gate(dtype, act):
     _same(glue.gated_act(gate, up, act), layers._act(gate, act) * up)
 
 
-# -- the transformer with and without the fused glue --------------------------
+# -- the transformer with and without the glue kernels -----------------------
 
 def _serve(arch, **over):
     """Full forward, prefill and STEPS greedy decode steps of a tiny
@@ -197,7 +200,7 @@ def _serve(arch, **over):
 
 
 @pytest.mark.parametrize("arch", ["yi-9b", "gemma2-9b", "granite-34b"])
-def test_fused_glue_path_equals_the_plain_path(arch):
+def test_glue_kernel_path_equals_the_plain_path(arch):
     plain = _serve(arch, use_kernels=False)
     fused = _serve(arch, use_kernels=True)
     assert len(plain) == len(fused)
@@ -206,15 +209,18 @@ def test_fused_glue_path_equals_the_plain_path(arch):
 
 
 @pytest.mark.parametrize("arch", ["yi-9b", "gemma2-9b", "granite-34b",
-                                  "llama-3.2-vision-11b"])
-def test_fused_glue_equals_the_eager_glue(monkeypatch, arch):
-    """The attention kernels' plain versions on both sides, the glue fused
-    or eager: llama-3.2-vision's attention kernels' plain versions differ
-    from the plain path's chunked attention in the last bits, so this
-    holds its cross layers (the held-back add flushed before the cross
-    attention reads the residual) to the glue alone."""
+                                  "llama-3.2-vision-11b",
+                                  "deepseek-moe-16b"])
+def test_glue_kernels_equal_the_eager_glue(monkeypatch, arch):
+    """The attention and MoE kernels' wrappers on both sides, the glue's
+    wrappers or its eager composition: llama-3.2-vision's attention
+    kernels' plain versions differ from the plain path's chunked
+    attention in the last bits, so this holds its cross layers (the
+    held-back add flushed before the cross attention reads the residual)
+    to the glue alone."""
     fused = _serve(arch, use_kernels=True)
-    monkeypatch.setattr(transformer, "fused_glue", lambda cfg, ax: False)
+    monkeypatch.setattr(layer_ops, "layer_ops",
+                        layer_ops.with_plain(layer_ops.GLUE))
     eager = _serve(arch, use_kernels=True)
     assert len(eager) == len(fused)
     for a, b in zip(eager, fused):

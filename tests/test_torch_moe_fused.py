@@ -1,6 +1,7 @@
 """The MoE layer's routing, placement and combine kernels
-(``kernels/moe.py``) and the choice of ``moe_apply_grouped`` between them
-and the eager composition.
+(``kernels/moe.py``) and ``moe_apply_grouped``'s use of the layer's
+record (``models/layer_ops.py``), which chooses between them and the
+eager composition.
 
 On the CPU, where each wrapper runs its plain version:
 
@@ -16,11 +17,12 @@ On the CPU, where each wrapper runs its plain version:
   each tile's counts, the scan's bases and each pair's rank within its
   tile give the plain ``pos``; the tiles' probability sums give the aux
   loss.
-* The path choice: ``use_kernels`` without a mesh calls the wrappers
-  (the fake walk records them), ``use_kernels`` off or a ``mean`` (the
-  mesh) calls none; CPU and fake tensors, any number of experts and
-  choices, and inputs that require grad then run the eager composition;
-  the counters ``.calls``, ``.pairs`` and ``.fused``.
+* The path choice: ``use_kernels`` without a mesh gives the record the
+  wrappers and the call goes through them (the fake walk records them);
+  ``use_kernels`` off, or a mesh (whose route takes a ``mean``), gives
+  the plain versions and calls none; CPU and fake tensors, any number of
+  experts and choices, and inputs that require grad then run the eager
+  composition; the counters ``.calls``, ``.pairs`` and ``.fused``.
 
 On the card (marker ``cuda``; skipped without one): each kernel against
 its plain version (the experts alike but at ties the float64 router
@@ -43,7 +45,8 @@ from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 
 from repro_torch.configs import get_tiny_config  # noqa: E402
 from repro_torch.kernels import build, glue, moe as kmoe  # noqa: E402
-from repro_torch.models import moe  # noqa: E402
+from repro_torch.models import layer_ops, moe  # noqa: E402
+from repro_torch.models.partition import AxisInfo  # noqa: E402
 
 ARCHS = ("deepseek-moe-16b", "arctic-480b", "llama4-maverick-400b-a17b")
 TOKENS = (1, 7, 64)
@@ -179,6 +182,8 @@ def test_tiled_placement_is_the_stable_sort(arch, T):
 
 #: the wrappers a call on the kernel path goes through, in their order
 WRAPPERS = ["moe_route", "moe_permute", "gated_act", "moe_combine"]
+#: a mesh, to ``layer_ops``, which reads no more than that one is given
+MESH = AxisInfo(mesh=None)
 
 
 def _counts():
@@ -199,12 +204,18 @@ def _fake_call(x, lp, cfg, **kw):
 
 @pytest.mark.parametrize("case", ["kernels", "off", "mean"])
 def test_use_kernels_without_a_mesh_takes_the_wrappers(case):
-    """``use_kernels`` without a mesh takes the wrappers; without
-    ``use_kernels``, or with a ``mean`` (the mesh), the plain versions
-    run and no wrapper is called."""
+    """``use_kernels`` without a mesh gives the record's MoE fields the
+    wrappers; without ``use_kernels``, or under a mesh (whose route takes
+    a ``mean``), the plain versions, and no wrapper is called."""
     cfg = _cfg("deepseek-moe-16b", use_kernels=case != "off")
+    ops = layer_ops.layer_ops(cfg, MESH if case == "mean" else None)
+    assert [getattr(ops, f) for f in layer_ops.MOE] == (
+        [kmoe.moe_route, kmoe.moe_permute, glue.gated_act, kmoe.moe_combine]
+        if case == "kernels" else
+        [kmoe.moe_route_plain, kmoe.moe_permute_plain, glue.gated_act_plain,
+         kmoe.moe_combine_plain])
     kw = {"mean": lambda t: t} if case == "mean" else {}
-    assert moe.fused_moe(cfg, **kw) == (case == "kernels")
+    kw["ops"] = ops
     lp = _layer(cfg)
     x = _hidden(cfg, 3)
     shape, called = _fake_call(x, lp, cfg, **kw)
@@ -226,7 +237,8 @@ def test_off_the_kernels_case_the_eager_path_runs(case):
     lp = _layer(cfg)
     x = _hidden(cfg, 5)
     T, k = 5, cfg.num_experts_per_tok
-    kw = {"mean": lambda t: t} if case == "mean" else {}
+    kw = ({"mean": lambda t: t, "ops": layer_ops.layer_ops(cfg, MESH)}
+          if case == "mean" else {})
     before = _counts()
     launches = kmoe.moe_route.launches
     if case == "fake":
